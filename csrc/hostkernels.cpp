@@ -1,4 +1,4 @@
-// Native host kernels for the TPU input pipeline.
+// Native host kernels for the input pipeline.
 //
 // The reference delegates its host-side hot loops to numba JIT kernels and
 // DGL's C++ samplers (SURVEY §2.3): subisomorphism weight counting

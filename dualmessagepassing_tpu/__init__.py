@@ -1,9 +1,9 @@
-"""dualmessagepassing_tpu: TPU-native dual message passing framework.
+"""dualmessagepassing_tpu: a JAX dual message passing framework.
 
-A from-scratch JAX/XLA/Pallas implementation of the capabilities of
+A from-scratch JAX/XLA implementation of the capabilities of
 HKUST-KnowComp/DualMessagePassing (AAAI 2022): subgraph-isomorphism counting
 and matching (SCM) and unsupervised heterogeneous-graph node embedding (UNC),
-re-designed for TPU — static shapes, MXU-shaped message passing, pjit/shard_map
+re-designed for XLA — static shapes, matmul-shaped message passing, shard_map
 scale-out.
 """
 

@@ -27,10 +27,10 @@ def add_model_config(parser):
     g.add_argument("--rep_num_graph_layers", type=int, default=3)
     g.add_argument("--rep_residual", type=str2bool, default=True)
     g.add_argument("--rep_dropout", type=float, default=0.0)
-    # TPU-first extension: jax.checkpoint each DMP layer (memory <-> recompute)
+    # Extension: jax.checkpoint each DMP layer (memory <-> recompute)
     g.add_argument("--rep_remat", type=str2bool, default=False)
-    # TPU-first extension: bf16 forward/backward with f32 master params
-    # (utils/amp.py; 1.76x flagship step on v5e)
+    # Extension: bf16 forward/backward with f32 master params
+    # (utils/amp.py)
     g.add_argument("--amp", type=str2bool, default=False)
     g.add_argument("--rep_act_func", type=str, default="leaky_relu")
     g.add_argument("--share_rep_net", type=str2bool, default=True)
@@ -136,14 +136,13 @@ def add_train_config(parser):
     g.add_argument("--eval_batch_size", type=int, default=64)
     g.add_argument("--train_ratio", type=float, default=1.0)
     g.add_argument("--train_grad_steps", type=int, default=1)
-    # TPU-first extension: lax.scan the batch as N equal microbatches
-    # inside ONE jitted step (same gradient; keeps each chunk's
-    # activations in VMEM — large-batch HBM-spill lever, ARCHITECTURE.md
-    # §8.5). Batch size must be divisible by it. 0 (default) =
-    # auto-select ~128-pair chunks from the batch size — the measured
-    # best at every batch (§8.5 sweep); 1 = never chunk.
+    # Extension beyond the reference: lax.scan the batch as N equal
+    # microbatches inside ONE jitted step (same gradient, a smaller
+    # activation working set — ARCHITECTURE.md §8.5). Batch size must be
+    # divisible by it. 0 (default) = auto-select ~128-pair chunks from the
+    # batch size; 1 = never chunk.
     g.add_argument("--train_microbatch_chunks", type=int, default=0)
-    # TPU-first extension (SURVEY §2.4 DP row; the reference is strictly
+    # Extension beyond the reference (SURVEY §2.4 DP row; it is strictly
     # single-device): shard each pair batch over N devices on a 'dp' mesh
     # axis — params replicated, gradient psum inserted by GSPMD.
     # train_batch_size should be divisible by it (the ragged curriculum

@@ -36,10 +36,12 @@ def main(argv=None):
     from ..train import (BucketSampler, TrainState, evaluate_epoch,
                          make_eval_step, make_optimizer)
     from ..train.checkpoint import restore_state
+    from ..utils.compile_cache import enable_compile_cache
     from ..utils.io import load_config, save_results
     from ..utils.log import get_best_epochs, init_logger
 
     args = build_parser().parse_args(argv)
+    enable_compile_cache()
     path = args.load_model_dir
 
     config = load_config(os.path.join(path, "config.json"))

@@ -119,10 +119,12 @@ def main(argv=None):
                          evaluate_epoch, make_eval_step, make_optimizer,
                          make_train_step, train_epoch)
     from ..train.checkpoint import save_state
+    from ..utils.compile_cache import enable_compile_cache
     from ..utils.io import save_config, save_results
     from ..utils.log import generate_best_line, init_logger
 
     config = get_train_config(argv)
+    enable_compile_cache()
     ts = datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
     save_dir = os.path.join(
         config["save_model_dir"],
@@ -161,7 +163,7 @@ def main(argv=None):
 
     ids, pattern, graph, counts, _ = datasets["train"].batchify(
         range(min(2, len(datasets["train"]))), "none")
-    # jitted init: eager flax init costs ~1 ms/op on remote-dispatch TPUs
+    # jitted init: an eager init dispatches every op separately
     variables = jax.jit(model.init)(
         jax.random.PRNGKey(config["seed"]), pattern, graph)
     n_params = sum(x.size for x in jax.tree.leaves(variables))

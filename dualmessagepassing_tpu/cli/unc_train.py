@@ -49,12 +49,6 @@ def get_args(argv=None):
                    help="node-state placement under --ep_devices: 'psum' "
                         "replicates nodes (per-layer [V,H] all-reduce); "
                         "'halo' owner-shards them (boundary all_to_all)")
-    p.add_argument("--scatter_backend", type=str, default="xla",
-                   choices=["xla", "windowed"],
-                   help="node-aggregation backend: 'windowed' uses the "
-                        "pass-per-window Pallas kernel (every backbone "
-                        "and sharding mode; 2.0-2.4x over XLA scatter at "
-                        "Yelp scale)")
     p.add_argument("--ep_partition", type=str, default="degree",
                    choices=["degree", "range", "bfs"],
                    help="halo node partitioner (ep_mode=halo): 'bfs' is "
@@ -65,30 +59,12 @@ def get_args(argv=None):
     p.add_argument("--amp", type=str, default="False",
                    help="bf16 backbone forward/backward with f32 master "
                         "params and f32 loss (utils/amp)")
-    # round-4 single-device cotangent levers (defaults off pending
-    # on-chip A/B — scripts/r4_tpu_campaign.sh)
+    # single-device endpoint-gather layout (exact-equivalence tested)
     p.add_argument("--endpoint_gather", type=str, default="split",
                    choices=["split", "fused"],
                    help="'fused': one gather over the concatenated [2E] "
                         "endpoint stream (one cotangent scatter per "
                         "layer instead of two); single-device only")
-    p.add_argument("--pad_cols", type=str, default="auto",
-                   help="pad the endpoint column table to 128 lanes "
-                        "(aligned gather/scatter rows; DMPNN backbone). "
-                        "auto = on single-device, off sharded "
-                        "(ARCHITECTURE §8.7)")
-    p.add_argument("--sender_windowed", type=str, default="auto",
-                   help="sender cotangent through the windowed kernel "
-                        "(sk2 twin plan; needs --amp True and "
-                        "--scatter_backend windowed). auto = on exactly "
-                        "when recv_bcast is on (wins only composed — "
-                        "ARCHITECTURE §8.3 round-4)")
-    p.add_argument("--recv_bcast", type=str, default="auto",
-                   help="forward receiver gather (and the aggregation's "
-                        "backward gather) through the windowed "
-                        "row-broadcast kernel. auto = on when "
-                        "single-device windowed + amp + pad_cols "
-                        "(ARCHITECTURE §8.3 round-4)")
     return p.parse_args(argv)
 
 
@@ -98,8 +74,10 @@ def main(argv=None):
     from ..unc import (load_label, load_supervised, load_unsupervised,
                        save_embeddings, train_unc)
     from ..unc.driver import train_unc_supervised
+    from ..utils.compile_cache import enable_compile_cache
 
     args = get_args(argv)
+    enable_compile_cache()
 
     def log(msg):
         print(time.strftime("%a, %d %b %Y %H:%M:%S +0000: ") + msg,
@@ -150,16 +128,8 @@ def main(argv=None):
             ep_devices=args.ep_devices or None, ep_mode=args.ep_mode,
             ep_partition=args.ep_partition,
             checkpoint_dir=args.checkpoint_dir or None,
-            scatter_backend=args.scatter_backend,
             amp=args.amp.lower() in ("true", "1"),
             endpoint_gather=args.endpoint_gather,
-            pad_cols=(None if args.pad_cols.lower() == "auto"
-                      else args.pad_cols.lower() in ("true", "1")),
-            sender_windowed=(None if args.sender_windowed.lower() == "auto"
-                             else args.sender_windowed.lower()
-                             in ("true", "1")),
-            recv_bcast=(None if args.recv_bcast.lower() == "auto"
-                        else args.recv_bcast.lower() in ("true", "1")),
             log=log)
 
     log("start output...")

@@ -1,6 +1,6 @@
 """Numeric constants and registry defaults.
 
-TPU-native re-design of the constants registry in the reference implementation
+Functional re-design of the constants registry in the reference implementation
 (see /root/reference/SubgraphCountingMatching/constants.py:1-39). The string
 feature-field registry (NODEFEAT/EDGEFEAT/...) of the reference exists because
 DGL stores features in mutable per-graph dicts; our functional design passes

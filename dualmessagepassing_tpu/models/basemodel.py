@@ -1,6 +1,6 @@
 """Model scaffold: encode -> filter+embed -> represent -> interact+predict.
 
-TPU-native re-design of the reference scaffold
+Static-shape re-design of the reference scaffold
 (/root/reference/SubgraphCountingMatching/models/basemodel.py:15-219 BaseModel,
 965-1663 GraphAdjModelV2).  Key structural differences from the reference:
 
@@ -24,7 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
+from .. import nn
 
 from ..graph import GraphBatch
 from ..ops.encoding import get_enc_len
@@ -122,7 +122,7 @@ class ModelConfig:
     # scatter backend: None = auto (one-hot einsum for small V), "onehot",
     # "segment" (XLA scatter-add)
     scatter_method: str = None
-    # TPU-first extension (no reference equivalent): rematerialize each DMP
+    # Extension (no reference equivalent): rematerialize each DMP
     # layer under autodiff (jax.checkpoint) to trade recompute for activation
     # memory — lets big envelopes / batch sizes fit HBM
     rep_remat: bool = False

@@ -13,7 +13,7 @@ Math per edge (u --e--> v):
     edge update: E' = E @ W_rel               # plain linear on the edge stream
 
 corr = circular correlation via rFFT (compgcn.py:213-224):
-    irfft( conj(rfft(head)) * rfft(rel) )  — XLA-native jnp.fft on TPU.
+    irfft( conj(rfft(head)) * rfft(rel) )  — XLA-native jnp.fft.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
+from .. import nn
 
 from ..graph import GraphBatch
 from ..ops.scatter import gather_nodes, scatter_sum_edges

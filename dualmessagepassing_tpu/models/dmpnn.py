@@ -1,6 +1,6 @@
 """Dual message passing layer (DMPLayer) — the core algorithmic object.
 
-TPU-native re-design of the reference layer
+Static-shape re-design of the reference layer
 (/root/reference/SubgraphCountingMatching/models/dmpnn.py:16-176).  Math, per
 edge (u --e--> v), with forward/reversed handled by select on rev_flag
 (dmpnn.py:111-127):
@@ -20,10 +20,10 @@ Eigenvalue reparameterization (dmpnn.py:79-86): W_in/W_out/W_nloop divided by
 init_neigenv and W_src/W_dst/W_eloop by init_eeigenv at init — folded into
 the initializer here.
 
-TPU mapping: the six weight matmuls are hoisted to node/edge level (dense
-[B,V,H]x[H,H] / [B,E,H]x[H,H] batched matmuls on the MXU), per-edge terms are
+XLA mapping: the six weight matmuls are hoisted to node/edge level (dense
+[B,V,H]x[H,H] / [B,E,H]x[H,H] batched matmuls), per-edge terms are
 gathers of those products, and the node aggregation is a masked segment-sum
-(one-hot einsum on the MXU for SCM envelopes; scatter-add for large graphs).
+(one-hot einsum for SCM envelopes; scatter-add for large graphs).
 XLA fuses the elementwise glue; there is no per-edge UDF interpreter.
 """
 
@@ -33,7 +33,7 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
+from .. import nn
 
 from ..graph import GraphBatch
 from ..ops.scatter import gather_nodes, gather_scalars, scatter_sum_edges
@@ -83,14 +83,14 @@ class DMPLayer(nn.Module):
         e_mask = graph.edge_mask
         rev = graph.rev_flag[..., None]  # [B, E, 1]
 
-        # ---- hoisted matmuls (MXU) ------------------------------------------
+        # ---- hoisted matmuls ------------------------------------------------
         # one fused [Din, 2H] product so each edge endpoint needs ONE gather
         hw = node_feat @ jnp.concatenate([w_src, w_dst], axis=1)  # [B, V, 2H]
         ew_in = edge_feat @ w_in      # [B, E, H]
         ew_out = edge_feat @ w_out    # [B, E, H]
 
         # ---- per-edge messages (gather + select) ----------------------------
-        # gathers share the scatter backend choice: the one-hot/MXU form has
+        # gathers share the scatter backend choice: the one-hot form has
         # a matmul transpose, keeping the backward scatter-free (scatter.py)
         src_w = gather_nodes(hw, senders, method=self.scatter_method)
         dst_w = gather_nodes(hw, receivers, method=self.scatter_method)

@@ -27,7 +27,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-import flax.linen as nn
+from .. import nn
 
 from ..constants import _INF
 from ..graph import EdgeSeqBatch

@@ -17,7 +17,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-import flax.linen as nn
+from .. import nn
 
 from ..utils.amp import compute_dtype
 from ..ops.encoding import get_enc_len, multihot_table, position_table
@@ -28,45 +28,27 @@ def _apply_table(table: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
     """Integer ids -> rows; float [...,N] -> matmul with the table.
 
     Small-table id lookups go through one_hot @ table instead of an XLA
-    gather: the narrow-row (sub-128-lane) gather was the single hottest
-    op of the flagship SCM step (0.100 ms/step at bsz 128 — ~13 GB/s,
-    far off the HBM roofline; ARCHITECTURE §8.6), while the one-hot form
-    is a tiny MXU matmul whose TRANSPOSE is also a matmul (scatter-free
-    backward for trainable tables). Ids are clipped to match gather's
-    out-of-bounds clamping.
+    gather: the one-hot form is a small matmul whose TRANSPOSE is also a
+    matmul (scatter-free backward for trainable tables), where a narrow-row
+    gather's backward is a scatter (ARCHITECTURE §8.6; the GPU A/B is
+    ROADMAP S7). Ids are clipped to match gather's out-of-bounds clamping.
 
     Precision: exact under amp (bf16 tables — one_hot rows are 0/1, f32
     accumulate selects one bf16 row verbatim). An f32 table is forced to
     HIGHEST dot precision so the selection stays bit-exact like the
-    gather it replaces — TPU's default bf16 matmul precision would round
-    the f32 values; bf16x3 emulation on these small tables is noise.
+    gather it replaces — a default-precision (TF32 or bf16) matmul would
+    round the f32 values.
     """
-    import os
-
-    # SCM_TABLE_PAD128=1 (round-5 A/B, VERDICT r4 item 5): zero-pad the
-    # table's feature lanes to a 128 multiple before the contraction and
-    # slice after — probes whether explicit lane alignment helps the SCM
-    # step's table matmuls the way pad_cols helped the UNC endpoint
-    # gathers. Read at TRACE time so scripts/scm_pad128_ab.py can build
-    # both programs in one process.
-    def _maybe_pad(t):
-        d = t.shape[1]
-        if os.environ.get("SCM_TABLE_PAD128") == "1" and d % 128:
-            return jnp.pad(t, ((0, 0), (0, 128 - d % 128))), d
-        return t, d
-
     if jnp.issubdtype(x.dtype, jnp.integer):
         n = table.shape[0]
         if n <= 2048:  # consistent with ops/scatter._DENSE_V_LIMIT
             oh = jax.nn.one_hot(jnp.clip(x, 0, n - 1), n, dtype=table.dtype)
             prec = ("highest"
                     if jnp.dtype(table.dtype) == jnp.float32 else None)
-            table, d = _maybe_pad(table)
-            return jnp.matmul(oh, table, precision=prec)[..., :d]
+            return jnp.matmul(oh, table, precision=prec)
         return table[x]
     if x.shape[-1] == table.shape[0]:
-        table, d = _maybe_pad(table)
-        return (x @ table)[..., :d]
+        return x @ table
     raise ValueError(
         f"embedding input last dim {x.shape[-1]} != num_embeddings {table.shape[0]}"
     )

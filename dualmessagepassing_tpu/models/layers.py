@@ -12,7 +12,7 @@ from typing import Callable, Optional, Sequence
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
+from .. import nn
 
 from ..utils.act import map_activation_str_to_fn
 from ..utils.init import calculate_gain, get_initializer

@@ -3,8 +3,8 @@
 Reference: /root/reference/SubgraphCountingMatching/models/lrp.py:18-214,
 dmplrp.py:19-330.  The reference materializes block-diagonal torch.sparse
 perm matrices at collate time and runs spmm per layer (lrp.py:66,73); our
-TPU form replaces each spmm with gathers + S (or S^2) dense matmuls on the
-MXU over fixed-size perm index tensors (data/lrp.py):
+static-shape form replaces each spmm with gathers + S (or S^2) dense
+matmuls over fixed-size perm index tensors (data/lrp.py):
 
   perm_feat[p, :] = sum_i  h[node(p, i)] @ W[:, :, i, i]
                   + sum_ij e[edge(p, i, j)] @ W[:, :, i, j] (cells with edges)
@@ -22,8 +22,8 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
-from flax import struct
+from .. import nn
+from ..nn import struct
 
 from ..graph import GraphBatch
 from ..ops.scatter import scatter_sum_edges

@@ -27,7 +27,7 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
+from .. import nn
 
 from ..utils.amp import compute_dtype
 from ..utils.act import map_activation_str_to_fn

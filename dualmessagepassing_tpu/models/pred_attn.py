@@ -2,7 +2,7 @@
 
 Reference: /root/reference/SubgraphCountingMatching/models/pred.py:240-1328.
 
-Static-shape TPU re-design of `init_mem` (pred.py:648-760) + the per-sample
+Static-shape re-design of `init_mem` (pred.py:648-760) + the per-sample
 bucketing in `init_memory` (pred.py:836-865, 1183-1263): the reference slices
 each sample to its true length and calls torch pooling per bucket because
 torch pooling cannot handle ragged rows.  Here each sample's pooling windows
@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
+from .. import nn
 
 from ..constants import _INF
 from ..utils.act import map_activation_str_to_fn, sparsemax

@@ -12,15 +12,15 @@ Weight regularizers (rgcn.py:59-78):
     basis: W_r = sum_b w_comp[r, b] * B_b           (num_bases < num_rels)
     bdd:   W_r block-diagonal with num_bases blocks of (din/nb, dout/nb)
 
-TPU mapping — relation-scan aggregation: instead of gathering a per-edge
+Relation-scan aggregation: instead of gathering a per-edge
 [E, D, H] weight tensor (the reference's index_select + bmm,
 rgcn.py:100-122, which would materialize E*D*H floats), we use
 
     agg[v] = sum_r ( sum_{e->v, rel=r} src[e] * norm[e] ) @ W_r
 
 i.e. one masked segment-sum + one dense [B,V,D]x[D,H] matmul per relation,
-looped with lax.scan over stacked relation weights.  Every FLOP lands on the
-MXU and peak memory stays at [B, V, D].  Edge norms factorize across the
+looped with lax.scan over stacked relation weights.  Every FLOP is a dense
+matmul and peak memory stays at [B, V, D].  Edge norms factorize across the
 scan: "in" multiplies at the destination after aggregation, "out" multiplies
 source features before, "both" splits the square root (exact).
 """
@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
+from .. import nn
 
 from ..graph import GraphBatch
 from ..ops.scatter import gather_nodes, scatter_sum_edges

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from typing import Dict, Type
 
-import flax.linen as nn
+from .. import nn
 
 from .basemodel import GraphAdjModelV2, ModelConfig
 from .dmpnn import DMPNNStack

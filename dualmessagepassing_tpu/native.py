@@ -33,11 +33,17 @@ def _build() -> Optional[ctypes.CDLL]:
         return None
     if (not os.path.exists(_SO)
             or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
+        # build under a private name and rename into place, so concurrent
+        # processes never load a half-written library
+        tmp = f"{_SO}.{os.getpid()}.tmp"
         try:
             subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", "-o", _SO, _SRC],
+                ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC],
                 check=True, capture_output=True)
-        except (subprocess.CalledProcessError, FileNotFoundError):
+            os.replace(tmp, _SO)
+        except (subprocess.CalledProcessError, FileNotFoundError, OSError):
+            if os.path.exists(tmp):
+                os.remove(tmp)
             return None
     lib = ctypes.CDLL(_SO)
     i64 = ctypes.c_int64

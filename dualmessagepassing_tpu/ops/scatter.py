@@ -1,23 +1,22 @@
 """Message-passing primitives: gather / segment-sum / SDDMM shapes.
 
-TPU-native replacement for DGL's fused `update_all`/`apply_edges` kernels that
+The JAX replacement for DGL's fused `update_all`/`apply_edges` kernels that
 the reference delegates all message passing to (dmpnn.py:163-164,
 compgcn.py:271-272, rgcn.py:196, rgin.py:159). Per SURVEY.md §2.3 these are
 three primitives, not a UDF framework:
 
   * `gather_nodes`   — edge-wise gather of node rows (src or dst)
   * `scatter_sum_*`  — segment-sum of per-edge messages into node slots
-  * per-edge fused compute stays ordinary jnp on the VPU/MXU and lets XLA fuse
+  * per-edge fused compute stays ordinary jnp and lets XLA fuse
 
 Two interchangeable backends:
 
   * ``onehot``  — express scatter/gather as one-hot einsums. Batched matmuls
-    land on the MXU and beat XLA's scatter on the small-graph envelopes of
+    beat XLA's scatter on the small-graph envelopes of
     the SCM workload (V<=128, E<=512).  O(E*V*H) FLOPs, which for these sizes
     is cheaper than the memory-bound scatter it replaces.
   * ``segment`` — `.at[].add()` scatter-add (XLA scatter) for large flat
-    graphs where O(E*V) is not affordable. The Pallas CSR kernel
-    (ops/pallas_scatter.py) plugs in behind the same signature.
+    graphs where O(E*V) is not affordable.
 
 All functions take explicit masks; padded edges contribute zero.
 """
@@ -31,7 +30,8 @@ import jax.numpy as jnp
 
 Array = jnp.ndarray
 
-# Default V threshold under which the one-hot/MXU path wins over XLA scatter.
+# Default V threshold under which the one-hot path replaces XLA scatter
+# (chosen on earlier hardware; the GPU A/B is ROADMAP S7).
 _DENSE_V_LIMIT = 2048
 
 
@@ -43,19 +43,15 @@ def gather_nodes(node_feat: Array, idx: Array,
     node_feat: [B, V, H]; idx: [B, E] -> [B, E, H].
 
     ``onehot`` (auto-selected for V <= _DENSE_V_LIMIT) expresses the gather
-    as `one_hot(idx) @ node_feat` — a batched matmul on the MXU whose
-    TRANSPOSE is also a matmul.  The ``take`` path's transpose is an XLA
-    scatter, which device traces show costs ~14 ms per [2048x512 -> 2048x64]
-    backward scatter on v5e (~35x over the HBM roofline); the one-hot form
-    removes every scatter from the hot fwd+bwd path.  ``take`` remains for
-    large V where O(E*V*H) FLOPs are unaffordable.
+    as `one_hot(idx) @ node_feat` — a batched matmul whose TRANSPOSE is
+    also a matmul.  The ``take`` path's transpose is an XLA scatter; the
+    one-hot form removes every scatter from the fwd+bwd path.  ``take``
+    remains for large V where O(E*V*H) FLOPs are unaffordable.
 
-    TPU numerics note: at the TPU DEFAULT matmul precision the one-hot
-    contraction returns the gathered f32 values ROUNDED to bf16 (~3
-    significant digits; ``take`` is exact). The production training
-    configuration is bf16 compute anyway (utils/amp), and the 4.1x step
-    win comes precisely from the single-pass form — pass
-    ``precision=jax.lax.Precision.HIGHEST`` (3x MXU passes) or
+    Numerics: at DEFAULT matmul precision the one-hot contraction rounds
+    the gathered f32 values (to TF32 on the GPU; ``take`` is exact). The
+    production training configuration is bf16 compute anyway
+    (utils/amp) — pass ``precision=jax.lax.Precision.HIGHEST`` or
     ``method="take"`` where exact f32 gathers matter.
     """
     v = node_feat.shape[-2]
@@ -75,8 +71,8 @@ def gather_scalars(table: Array, idx: Array,
                    precision=None) -> Array:
     """Gather per-node scalars per edge: table [B, V]; idx [B, E] -> [B, E].
 
-    Same onehot-vs-take tradeoff (and TPU DEFAULT-precision bf16 rounding
-    note) as gather_nodes. Degree tables stay exact in bf16 up to 256;
+    Same onehot-vs-take tradeoff (and DEFAULT-precision rounding note) as
+    gather_nodes. Degree tables stay exact in bf16 up to 256;
     larger-degree envelopes should pass method="take".
     """
     v = table.shape[-1]
@@ -110,7 +106,7 @@ def scatter_sum_edges(
     if method == "onehot":
         # [B, E, V] one-hot of receivers; padded edges all-zero rows.
         oh = _masked_onehot(receivers, edge_mask, num_nodes, msg.dtype)
-        # [B,E,V]^T x [B,E,H] -> [B,V,H]: a batched matmul on the MXU.
+        # [B,E,V]^T x [B,E,H] -> [B,V,H]: a batched matmul.
         return jnp.einsum("bev,beh->bvh", oh, msg)
     elif method in ("segment", "take"):
         # "take" accepted as an alias so layers can share one method flag
@@ -131,12 +127,8 @@ def scatter_sum_flat(
     """Flat-graph segment-sum: messages [E, H], receivers [E] -> [V, H].
 
     Pass ``indices_sorted=True`` when the caller guarantees receivers are
-    non-decreasing (e.g. host-side CSR sort). Measured v5e, V=82k/E=497k:
-    the ISOLATED op gets ~1.4x faster (7.7ms vs 10.6ms) — but inside a
-    full jitted train step the hint measured ~100x SLOWER (168ms vs
-    1.8ms, unc/model.py): it forces a scatter lowering that defeats the
-    fusion XLA picks for the unsorted op. Benchmark in context before
-    enabling.
+    non-decreasing (e.g. host-side CSR sort); the hint silently corrupts
+    the sum on unsorted input.
     """
     msg = jnp.where(edge_mask[..., None], messages, 0)
     return (

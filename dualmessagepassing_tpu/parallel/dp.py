@@ -2,10 +2,10 @@
 
 SURVEY §2.4: the reference has NO distributed execution of any kind (single
 --gpu_id device, train.py:1080-1083); DP here is new capability, built the
-TPU way — GraphBatch leaves all carry the batch as axis 0, so data
+XLA way — GraphBatch leaves all carry the batch as axis 0, so data
 parallelism is literally `NamedSharding(mesh, P("dp", ...))` on every leaf,
 with parameters replicated and gradients all-reduced by pjit-inserted
-psums over ICI.
+psums.
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ Design (the graph analog of sequence parallelism):
     30.5M edges over 82K nodes; the 100M-edge config has ~100K nodes);
   * a layer computes local per-edge messages and a local partial
     segment-sum into the full [V, H] slot table, then one psum over 'ep'
-    completes the aggregation — the only collective per layer, riding ICI;
+    completes the aggregation — the only collective per layer;
   * degree tables are partial-counted and psummed once, then reused.
 
 Under `shard_map` every step is explicit; XLA overlaps the psum with the
@@ -62,15 +62,6 @@ def make_edge_parallel_dmp_apply(
       senders/receivers/rev_flag/edge_mask [E] (sharded on 'ep').
     Returns (node_out [V, H] replicated, edge_out [E, H] sharded).
     """
-    try:
-        from jax import shard_map as _shard_map  # jax >= 0.8
-
-        def shard_map(f, **kw):  # new API renamed check_rep -> check_vma
-            kw["check_vma"] = kw.pop("check_rep", False)
-            return _shard_map(f, **kw)
-    except ImportError:  # pragma: no cover
-        from jax.experimental.shard_map import shard_map
-
     def layer(params, node_feat, e_feat, senders, receivers, rev, e_mask,
               out_deg):
         rev = rev[:, None]
@@ -119,11 +110,11 @@ def make_edge_parallel_dmp_apply(
 
     ep = P("ep")
     rep = P()
-    return shard_map(
+    return jax.shard_map(
         forward, mesh=mesh,
         in_specs=(rep, rep, ep, ep, ep, ep, ep),
         out_specs=(rep, ep),
-        check_rep=False,
+        check_vma=False,
     )
 
 

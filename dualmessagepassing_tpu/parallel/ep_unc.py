@@ -1,4 +1,4 @@
-"""Edge-partitioned execution of the REAL UNC model (round-2 VERDICT #2).
+"""Edge-partitioned execution of the REAL UNC model.
 
 Runs `UNCTrainModel` — the full DualGraphConv / CompGCN / R-GCN / R-GIN
 stack with update MLPs, batch norm, edge_norm, DistMult loss and all three
@@ -8,7 +8,7 @@ and node state replicated (V << E for the target workloads: Yelp 30.5M
 edges over 82K nodes).
 
 Collective schedule per layer (see unc/model.py `ep_axis`):
-  * one psum completes the node aggregation ([V, H], rides ICI),
+  * one psum completes the node aggregation ([V, H]),
   * one psum for out-degrees (reused), two [H]-wide psums for each
     BatchNorm's global statistics,
 and per loss: [R,H]/scalar psums for the per-relation edge means and the
@@ -22,40 +22,22 @@ this module is the production path wired into train_unc(ep_devices=...).
 from __future__ import annotations
 
 from functools import partial
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..unc.model import UNCTrainModel
 
-# per-edge arrays sharded over 'ep'; everything else replicated. The sk_*
-# entries are the windowed-scatter-kernel pass plans (one per shard,
-# concatenated along axis 0 by attach_ep_scatter_plans so the same P('ep')
-# sharding hands each shard its own plan).
+# per-edge arrays sharded over 'ep'; everything else replicated.
 EDGE_KEYS = ("senders", "receivers", "edge_type", "rev_flag", "edge_mask",
-             "edge_norm", "sk_blk", "sk_win", "sk_first", "sk_recv",
-             # round-5: per-shard twins of the round-4 single-device
-             # kernel plans (VERDICT r4 item 2) — sb_* = row-broadcast
-             # (forward receiver gather + aggregation backward gather),
-             # sk2_*/send_order = senders-sorted windowed cotangent
-             "sb_blk", "sb_win", "sb_first",
-             "sk2_blk", "sk2_win", "sk2_first", "sk2_recv", "send_order")
+             "edge_norm")
 
 
 def _shard_map(f, mesh, in_specs, out_specs):
-    try:
-        from jax import shard_map as sm  # jax >= 0.8
-
-        return sm(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                  check_vma=False)
-    except ImportError:  # pragma: no cover
-        from jax.experimental.shard_map import shard_map as sm
-
-        return sm(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                  check_rep=False)
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)
 
 
 def sub_specs(sub: Dict[str, jnp.ndarray]) -> Dict[str, P]:
@@ -81,73 +63,6 @@ def shard_sub(mesh: Mesh, sub: Dict[str, jnp.ndarray]) -> Dict[str, jnp.ndarray]
 
 def pad_e_max(e_max: int, n_devices: int) -> int:
     return -(-e_max // n_devices) * n_devices
-
-
-def attach_ep_scatter_plans(padded: Dict[str, np.ndarray], n_shards: int,
-                            tile_e: Optional[int] = None,
-                            window: Optional[int] = None,
-                            bcast_plan: bool = False,
-                            sender_plan: bool = False
-                            ) -> Dict[str, np.ndarray]:
-    """Windowed-kernel pass plans for every contiguous edge slice shard_sub
-    will create (host side, per batch).
-
-    Each shard's slice of the receiver-sorted stream is itself
-    receiver-sorted with its real edges as a prefix (pad_subgraph keeps
-    pads at the global tail), so a per-shard plan over the FULL node range
-    is valid; the model's per-shard partial aggregation is then completed
-    by the existing [V, H] psum (unc/model.py ep_axis). Plan shapes depend
-    only on (e_max/n_shards, v_max), so every batch of a run compiles to
-    one program.
-
-    bcast_plan adds per-shard sb_* row-broadcast twin plans (forward
-    receiver gather from the replicated cols table + the aggregation's
-    backward gather through the Pallas kernel — the node table is full-V
-    replicated under ep-psum, so the single-device plan semantics apply
-    per slice verbatim). sender_plan adds the senders-sorted sk2_* twin
-    plus the per-shard local sort `send_order` (the sendwin cotangent);
-    the full slice including pad rows is treated as real, exactly as
-    attach_scatter_plan does single-device — pads carry zero cotangents.
-    (Round-5, VERDICT r4 item 2.)"""
-    from ..ops.segment_kernel import (DEFAULT_TILE_E, DEFAULT_WINDOW,
-                                      build_pass_plan, plan_bcast_arrays,
-                                      plan_sk_arrays)
-
-    tile_e = tile_e or DEFAULT_TILE_E
-    window = window or DEFAULT_WINDOW
-    e_max = len(padded["receivers"])
-    if e_max % n_shards:
-        raise ValueError(f"e_max={e_max} not divisible by {n_shards}")
-    k = e_max // n_shards
-    v_max = len(padded["node_mask"])
-    recv = np.asarray(padded["receivers"])
-    send = np.asarray(padded["senders"])
-    mask = np.asarray(padded["edge_mask"])
-    parts = []
-    for s in range(n_shards):
-        m = mask[s * k: (s + 1) * k]
-        n_real = int(m.sum())
-        p = plan_sk_arrays(recv[s * k: s * k + n_real],
-                           v_max, k, tile_e, window)
-        if bcast_plan:
-            p.update(plan_bcast_arrays(recv[s * k: s * k + n_real],
-                                       v_max, k, tile_e, window))
-        if sender_plan:
-            order = np.argsort(send[s * k: (s + 1) * k],
-                               kind="stable").astype(np.int64)
-            p["send_order"] = order
-            p2 = build_pass_plan(send[s * k: (s + 1) * k][order], v_max,
-                                 e_env=k, v_env=v_max, tile_e=tile_e,
-                                 window=window)
-            p["sk2_blk"] = p2["blk"]
-            p["sk2_win"] = p2["win"]
-            p["sk2_first"] = p2["first"]
-            p["sk2_recv"] = p2["recv_col"]
-        parts.append(p)
-    out = dict(padded)
-    for key in parts[0]:
-        out[key] = np.concatenate([p[key] for p in parts], axis=0)
-    return out
 
 
 def make_ep_model(**model_kwargs) -> UNCTrainModel:

@@ -3,8 +3,7 @@
 The full-psum path (parallel/edge_partition.py) replicates node state and
 all-reduces the entire [V, H] table once per layer — O(V*H) collective
 traffic per device regardless of partition locality. This module is the
-scalable variant (SURVEY §2.4 "graph partitioning / halo exchange",
-round-1 VERDICT next-step #6):
+scalable variant (SURVEY §2.4 "graph partitioning / halo exchange"):
 
   * nodes are partitioned into owner-contiguous ranges (degree-balanced
     greedy, or METIS-style locality when the graph has it);
@@ -19,8 +18,8 @@ Crossover vs the full psum: all_to_all sends n*B_max*H floats per device
 per layer; a ring all-reduce of the replicated table moves ~2*V*H. The
 halo path wins when the per-shard boundary is below ~2V/n — always true
 for community-structured graphs, never for uniform power-law wiring
-where every shard references every hub (measured table in
-ARCHITECTURE.md §8.4 / scripts/halo_bench.py).
+where every shard references every hub (ARCHITECTURE.md §8.2b,
+scripts/halo_bench.py).
 
 The layer math is the DMP layer of edge_partition.py (same params);
 forward equivalence against the replicated path is pinned by

@@ -40,20 +40,10 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from ..unc.model import UNCTrainModel
 from .ep_unc import _shard_map
 
-# arrays carrying a leading [n_shards] axis, sharded over 'ep' (sk_* =
-# per-shard windowed-scatter pass plans, built when scatter_plan=True)
+# arrays carrying a leading [n_shards] axis, sharded over 'ep'
 SHARD_KEYS = ("nid", "node_mask", "out_deg", "senders", "receivers",
               "edge_type", "rev_flag", "edge_mask", "edge_norm",
-              "send_idx", "send_mask",
-              "sk_blk", "sk_win", "sk_first", "sk_recv",
-              # round-5 kernel-plan twins (VERDICT r4 item 2): sb_* =
-              # aggregation-backward row-broadcast at the [Vp] envelope,
-              # sbt_* = cols-table forward broadcast at the COMPOSITE
-              # [owned; halo; dump] envelope (own receiver column),
-              # sk2_*/send_order = senders-sorted windowed cotangent
-              "sb_blk", "sb_win", "sb_first",
-              "sbt_blk", "sbt_win", "sbt_first", "sbt_recv",
-              "sk2_blk", "sk2_win", "sk2_first", "sk2_recv", "send_order")
+              "send_idx", "send_mask")
 
 
 def halo_envelope(v_max: int, e_max: int, n_shards: int,
@@ -163,10 +153,7 @@ def _assign_owners_bfs(senders, receivers, edge_mask, v_max, n_shards,
 
 
 def build_halo_sub(padded: Dict[str, np.ndarray], n_shards: int,
-                   vp: int, ep: int, b: int, method: str = "degree",
-                   scatter_plan: bool = False,
-                   bcast_plan: bool = False,
-                   sender_plan: bool = False
+                   vp: int, ep: int, b: int, method: str = "degree"
                    ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
     """Partition a `pad_subgraph` output for owner-sharded execution.
 
@@ -290,47 +277,6 @@ def build_halo_sub(padded: Dict[str, np.ndarray], n_shards: int,
     }
     if has_norm:
         dev["edge_norm"] = norm_sh
-    if scatter_plan:
-        # per-shard windowed-kernel pass plans: each shard's local
-        # receivers (rank within owner) are sorted (receiver-sortedness
-        # survives partitioning — test_build_halo_sub_invariants) and the
-        # aggregation is fully local, so the kernel writes [Vp] directly
-        from ..ops.segment_kernel import (build_pass_plan,
-                                          plan_bcast_arrays, plan_sk_arrays)
-
-        vt = dump + 1   # composite gather-table rows: [owned; halo; zero]
-        parts = []
-        for s in range(n_shards):
-            k = len(edge_perm[s])
-            p = plan_sk_arrays(l_recv[s, :k], vp, ep)
-            if bcast_plan:
-                # aggregation-backward broadcast twin at the [Vp]
-                # envelope (shares sk_recv) + the cols-table forward
-                # broadcast at the composite-table envelope, which needs
-                # its OWN receiver column: the [Vp]-envelope dump row
-                # would alias into real halo rows of the larger table
-                p.update(plan_bcast_arrays(l_recv[s, :k], vp, ep))
-                p.update(plan_bcast_arrays(l_recv[s, :k], vt, ep,
-                                           prefix="sbt", with_recv=True))
-            if sender_plan:
-                # senders-sorted windowed-cotangent twin over the
-                # composite-table index space (local senders address
-                # [owned; halo; dump]; pad rows carry the dump index,
-                # sort to the tail, and scatter exactly-zero cotangents
-                # into the zero row, whose gradient the _halo_table
-                # concat transpose drops)
-                order = np.argsort(l_send[s], kind="stable").astype(
-                    np.int64)
-                p["send_order"] = order
-                p2 = build_pass_plan(l_send[s][order], vt, e_env=ep,
-                                     v_env=vt)
-                p["sk2_blk"] = p2["blk"]
-                p["sk2_win"] = p2["win"]
-                p["sk2_first"] = p2["first"]
-                p["sk2_recv"] = p2["recv_col"]
-            parts.append(p)
-        for key in parts[0]:
-            dev[key] = np.stack([p[key] for p in parts])
     meta = {"owner": owner, "rank": rank, "owned_slice": owned_slice,
             "edge_perm": edge_perm, "vp": vp, "ep": ep, "b": b,
             "packed": packed}

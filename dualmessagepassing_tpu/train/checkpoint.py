@@ -1,4 +1,5 @@
-"""Checkpointing (orbax) + model expansion to larger vocabularies.
+"""Checkpoints as .npz files keyed by tree path + model expansion to
+larger vocabularies.
 
 Reference behavior: the SCM driver saves `state_dict` per best epoch
 (train.py:1334-1340) WITHOUT optimizer state; `model.expand` grows a trained
@@ -7,14 +8,18 @@ values into the *tail* slices (basemodel.py:167-219 + expand_dimensions,
 utils/dl.py:157-191) — the multihot encoding grows at the front (new
 most-significant digit blocks), so old rows live at the tail.
 
-Our build improves on the reference: full TrainState (params + batch stats +
-optimizer state + step) is checkpointed via orbax, enabling true resume; the
-reference's params-only style remains available via save_params.
+Our build saves the full TrainState (params + batch stats + optimizer
+state + step), enabling true resume; the reference's params-only style
+remains available via save_params. Each leaf is one array of the archive,
+named by its `jax.tree_util.keystr` path. Restoring into a template
+(`like=`) rebuilds any pytree, optax states included; without one, only
+trees of nested dicts (params, batch_stats) can be rebuilt.
 """
 
 from __future__ import annotations
 
 import os
+import re
 from typing import Any, Dict, Optional
 
 import jax
@@ -24,41 +29,96 @@ import numpy as np
 from .scm_driver import TrainState
 
 
-def _checkpointer():
-    import orbax.checkpoint as ocp
-    return ocp.PyTreeCheckpointer()
+def _npz(path: str) -> str:
+    path = os.path.abspath(path)
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def checkpoint_exists(path: str) -> bool:
+    return os.path.exists(_npz(path))
+
+
+def _flatten(tree) -> Dict[str, np.ndarray]:
+    leaves = jax.tree_util.tree_flatten_with_path(tree)[0]
+    return {jax.tree_util.keystr(p): np.asarray(x) for p, x in leaves}
+
+
+def save_params(path: str, tree) -> str:
+    """Write every leaf of `tree` to `<path>.npz` (params-only checkpoints
+    are the reference's epoch{E}.pt analog); returns the file name. The
+    file is replaced atomically."""
+    out = _npz(path)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = out + ".tmp.npz"
+    np.savez(tmp, **_flatten(tree))
+    os.replace(tmp, out)
+    return out
+
+
+_DICT_KEY = re.compile(r"\['((?:[^'\\]|\\.)*)'\]")
+
+
+def _unflatten_dicts(flat: Dict[str, np.ndarray]):
+    tree: Dict[str, Any] = {}
+    for key, val in flat.items():
+        parts = _DICT_KEY.findall(key)
+        if "".join(f"['{p}']" for p in parts) != key:
+            raise ValueError(
+                f"checkpoint leaf {key} is not inside nested dicts; "
+                "restore it with like=")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+    return tree
+
+
+def restore_params(path: str, like=None):
+    """Read `<path>.npz` into the structure of `like`, or into nested
+    dicts when `like` is None."""
+    with np.load(_npz(path)) as f:
+        flat = {k: f[k] for k in f.files}
+    if like is None:
+        return _unflatten_dicts(flat)
+    paths, treedef = jax.tree_util.tree_flatten_with_path(like)
+    missing = [jax.tree_util.keystr(p) for p, _ in paths
+               if jax.tree_util.keystr(p) not in flat]
+    if missing:
+        raise KeyError(f"checkpoint {_npz(path)} lacks {missing[:3]}")
+    return jax.tree_util.tree_unflatten(
+        treedef, [flat[jax.tree_util.keystr(p)] for p, _ in paths])
 
 
 def save_state(path: str, state: TrainState):
-    _checkpointer().save(os.path.abspath(path), {
+    save_params(path, {
         "params": state.params,
         "batch_stats": state.batch_stats,
         "opt_state": state.opt_state,
         "step": state.step,
-    }, force=True)
+    })
 
 
 def restore_state(path: str, like: Optional[TrainState] = None) -> TrainState:
-    target = None
+    """Restore a saved TrainState. Without `like`, the optimizer state
+    cannot be rebuilt and comes back as None (params-only use: evaluation,
+    finetuning)."""
     if like is not None:
-        target = {
+        d = restore_params(path, {
             "params": like.params,
             "batch_stats": like.batch_stats,
             "opt_state": like.opt_state,
             "step": like.step,
-        }
-    d = _checkpointer().restore(os.path.abspath(path), item=target)
-    return TrainState(d["params"], d["batch_stats"], d["opt_state"],
-                      jnp.asarray(d["step"]))
-
-
-def save_params(path: str, variables: Dict[str, Any]):
-    """Params-only checkpoint (reference epoch{E}.pt analog)."""
-    _checkpointer().save(os.path.abspath(path), variables, force=True)
-
-
-def restore_params(path: str, like: Optional[Dict[str, Any]] = None):
-    return _checkpointer().restore(os.path.abspath(path), item=like)
+        })
+        opt_state = d["opt_state"]
+    else:
+        with np.load(_npz(path)) as f:
+            flat = {k: f[k] for k in f.files
+                    if not k.startswith("['opt_state']")}
+        d = _unflatten_dicts(flat)
+        opt_state = None
+    to_dev = lambda t: jax.tree_util.tree_map(jnp.asarray, t)  # noqa: E731
+    return TrainState(to_dev(d["params"]), to_dev(d.get("batch_stats", {})),
+                      to_dev(opt_state), jnp.asarray(d["step"]))
 
 
 # =============================================================================

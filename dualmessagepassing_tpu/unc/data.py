@@ -21,7 +21,7 @@ Semantics preserved:
   * negative sampling corrupts head or tail uniformly with the skip-self
     adjustment (utils.py:539-551).
 
-TPU adaptation: sampled subgraphs are padded to a static (v_max, e_max)
+Static-shape adaptation: sampled subgraphs are padded to a static (v_max, e_max)
 envelope so one compiled train step serves every batch.
 """
 
@@ -443,7 +443,7 @@ def add_pair_keys(padded: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     pair_order = np.argsort(pair, kind="stable")
     out = dict(padded)
     # int32: both values (< V) and positions (< 2E) fit, halving the
-    # per-batch host->device index transfer (TPU gathers take i32 natively)
+    # per-batch host->device index transfer (gathers take i32 natively)
     out["pair_order"] = pair_order.astype(np.int32)
     out["pair_sorted"] = pair[pair_order].astype(np.int32)
     return out

@@ -39,7 +39,7 @@ def sparsemax(x, axis: int = -1):
     """Sparsemax (Martins & Astudillo 2016) with a static full sort.
 
     Replaces the reference's custom autograd `Sparsemax` (utils/act.py:210-356)
-    with a TPU-friendly formulation: full descending sort (static shape),
+    with a static-shape formulation: full descending sort (static shape),
     support size k* = max{k : 1 + k*z_(k) > cumsum(z)_k}, threshold
     tau = (cumsum_{k*} - 1) / k*, output = max(z - tau, 0).  The standard JVP
     through this composition equals the sparsemax Jacobian a.e., so no custom

@@ -1,9 +1,8 @@
 """Mixed precision (bf16 compute) for the SCM hot path.
 
-TPU matmuls already multiply in bf16 at DEFAULT precision, so casting to
-bf16 does not change MXU FLOP rate — the win is HALVING the HBM bytes of
-every activation tensor the fused step streams (the flagship step is
-memory-feed-bound at hid_dim=64: MFU 0.054 in f32).
+The flagship step at hid_dim=64 is bound by memory traffic, not matmul
+rate, so the win of bf16 compute is HALVING the device-memory bytes of
+every activation tensor the fused step streams.
 
 Mechanism: a TRACE-TIME compute dtype. `set_compute_dtype` flips a module
 global consulted by the model's few explicit dtype pins (mask->gate casts,

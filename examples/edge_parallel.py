@@ -7,7 +7,7 @@ parallelism.
 
 On CPU: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
             python examples/edge_parallel.py
-On a TPU slice set DMP_EXAMPLE_TPU=1 to keep the real devices.
+On a machine with GPUs set DMP_EXAMPLE_ACCEL=1 to keep the real devices.
 """
 
 import os
@@ -21,7 +21,7 @@ if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", "")
 
 import jax  # noqa: E402
 
-if not os.environ.get("DMP_EXAMPLE_TPU"):
+if not os.environ.get("DMP_EXAMPLE_ACCEL"):
     # must run before any backend initialization
     jax.config.update("jax_platforms", "cpu")
 

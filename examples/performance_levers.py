@@ -1,16 +1,16 @@
-"""The round-2 performance surface in one script: bf16 mixed precision,
-in-step microbatching, and the windowed scatter kernel under sharding.
+"""The performance levers in one script: bf16 mixed precision, in-step
+microbatching, owner-sharded execution and the endpoint-gather layouts.
 
 SCM: `make_train_step(amp=True, accum_chunks=k)` — bf16 compute with f32
-master params (1.76x flagship step on v5e) scanned as k microbatches
-(VMEM residency at large batch; identical mean gradient for the
-bsz-denominated losses). UNC: `train_unc(amp=True,
-scatter_backend="windowed", ep_devices=N, ep_mode="halo",
-ep_partition="bfs")` composes every lever with owner-sharded execution.
+master params scanned as k microbatches (a smaller activation working
+set; identical mean gradient for the bsz-denominated losses). UNC:
+`train_unc(amp=True, ep_devices=N, ep_mode="halo", ep_partition="bfs")`
+composes the levers with owner-sharded execution. What each is worth on
+the GPU is in PERF.md.
 
 On CPU: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
             python examples/performance_levers.py
-On a TPU slice set DMP_EXAMPLE_TPU=1 to keep the real devices.
+On a machine with GPUs set DMP_EXAMPLE_ACCEL=1 to keep the real devices.
 """
 
 import os
@@ -24,7 +24,7 @@ if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", "")
 
 import jax  # noqa: E402
 
-if not os.environ.get("DMP_EXAMPLE_TPU"):
+if not os.environ.get("DMP_EXAMPLE_ACCEL"):
     jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
@@ -72,16 +72,15 @@ def unc_all_levers():
         ep_devices=min(8, len(jax.devices())),  # owner-sharded over 'ep'
         ep_mode="halo",                         # boundary all_to_all
         ep_partition="bfs",                     # locality-aware owners
-        scatter_backend="windowed",             # per-shard pass plans
         amp=True,                               # bf16 backbone
         log=lambda s: None)
-    print(f"UNC halo+bfs+windowed+amp: coverage {coverage:.2f}, "
+    print(f"UNC halo+bfs+amp: coverage {coverage:.2f}, "
           f"emb shape {embs.shape}")
 
 
 def unc_single_device_cotangent_levers():
-    """Round-4 single-device levers: fused 2E endpoint gather + 128-lane
-    column table (see scripts/r4_tpu_campaign.sh for the on-chip A/B)."""
+    """Single-device layout: the fused 2E endpoint gather
+    (scripts/unc_step_bench.py A/Bs it on the card)."""
     from dualmessagepassing_tpu.unc.driver import train_unc
 
     rng = np.random.default_rng(0)
@@ -94,36 +93,12 @@ def unc_single_device_cotangent_levers():
         sample_depth=2, sample_width=5, n_epochs=2, v_max=30, e_max=150,
         seed=0,
         endpoint_gather="fused",   # ONE [2E] gather / cotangent scatter
-        pad_cols=True,             # 128-lane endpoint column table
         log=lambda s: None)
-    print(f"UNC fused+pad_cols: coverage {coverage:.2f}, "
+    print(f"UNC fused endpoints: coverage {coverage:.2f}, "
           f"emb shape {embs.shape}")
-
-
-def unc_shipped_default_composition():
-    """The measured-best single-device composition needs NO flags beyond
-    amp + the windowed backend: pad_cols and the windowed row-broadcast
-    gather kernel (recv_bcast) auto-enable (ARCHITECTURE §8.3/§8.7 —
-    66.1 -> 55.9 ms/step at the Yelp-ish envelope, on-chip A/B)."""
-    from dualmessagepassing_tpu.unc.driver import train_unc
-
-    rng = np.random.default_rng(0)
-    src = rng.integers(0, 30, 150)
-    dst = (src + rng.integers(1, 30, 150)) % 30
-    rel = rng.integers(0, 2, 150)
-    t = np.stack([src, rel, dst], 1).astype(np.int64)
-    embs, coverage = train_unc(
-        t, 30, 2, h_dim=8, n_layers=1, graph_batch_size=50,
-        sample_depth=2, sample_width=5, n_epochs=2, v_max=30, e_max=150,
-        seed=0,
-        amp=True, scatter_backend="windowed",   # levers auto-compose
-        log=lambda s: None)
-    print(f"UNC shipped default (amp+windowed+pad_cols+recv_bcast): "
-          f"coverage {coverage:.2f}, emb shape {embs.shape}")
 
 
 if __name__ == "__main__":
     scm_amp_microbatched()
     unc_all_levers()
     unc_single_device_cotangent_levers()
-    unc_shipped_default_composition()

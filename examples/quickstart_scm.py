@@ -40,7 +40,7 @@ def main():
                       hid_dim=32, rep_net="DMPNN")
     model = build_model(cfg)
     params = jax.jit(model.init)(jax.random.PRNGKey(0), pattern, graph)
-    # always jit on TPU: un-jitted apply dispatches eagerly, op by op
+    # always jit: un-jitted apply dispatches eagerly, op by op
     out = jax.jit(model.apply)(params, pattern, graph)
     print("pred_c:", np.asarray(out["pred_c"]).ravel())
 

@@ -1,10 +1,10 @@
 #!/bin/bash
 # Validate every pinned quality/convergence artifact against its gate in
-# one command (round 5). Each check RERUNS the full workload (chip for
+# one command. Each check RERUNS the full workload (chip for
 # SCM/UNC training, CPU for evals) and fails if the pinned claim — incl.
 # dev_beats_zero for the matching artifacts and quality_ok for the UNC
 # ones — regresses. Individual checks are independent; comment out what
-# you don't need. Expected total: ~1.5-2.5 h on a v5e + host.
+# you don't need. Several hours in all (the UNC evals are CPU sklearn).
 set -ex
 cd "$(dirname "$0")/.."
 
@@ -18,8 +18,8 @@ python scripts/scm_convergence.py --family mutag --pairs 4096 \
     --max-epochs 100 --check SCM_CONVERGENCE_MUTAG.json
 
 # UNC embedding quality (single-label ci scale + multi-label Yelp
-# protocol; the pubmed-scale artifact is train ~18 min TPU + hours of
-# CPU sklearn — run its staged form separately if needed)
+# protocol; the pubmed-scale artifact adds hours of CPU sklearn — run
+# its staged form separately if needed)
 python scripts/unc_convergence.py --scale ci --cpu \
     --check UNC_CONVERGENCE.json
 python scripts/unc_convergence.py --scale multi \

@@ -1,10 +1,9 @@
 """Sweep (bsz, BENCH_CHUNKS) with the device-trace clock in ONE process.
 
 Measures the flagship amp train step for each (bsz, chunks) config and
-prints a JSON line per config — the data behind the bench defaults
-(ARCHITECTURE.md §8.5: chunked scans keep each microbatch's activations
-in VMEM, so the best config is a throughput tradeoff between VMEM
-residency and per-chunk fixed cost).
+prints a JSON line per config: the data for choosing the auto-chunk rule
+of make_train_step / bench.build_step (chunked scans bound each
+microbatch's activation working set at some fixed cost per chunk).
 
 Usage: python scripts/chunk_sweep.py "2048:1,2048:4,2048:16,512:1,512:4"
        (default sweep if no arg)
@@ -29,20 +28,24 @@ def main():
         configs.append((int(b), int(c)))
 
     import bench
+    from dualmessagepassing_tpu.utils.compile_cache import (
+        enable_compile_cache)
 
+    enable_compile_cache()
+    info = bench.device_info()
+    peak = bench.step_peak_flops(info["device_kind"], amp=True)
     for bsz, chunks in configs:
         os.environ["BENCH_CHUNKS"] = str(chunks)
         try:
             advance, state, flops = bench.build_step(bsz)
-            dev_ms, host_ms = bench.time_step(advance, state, iters)
-            step_ms = dev_ms if dev_ms else host_ms
+            step_ms, host_ms = bench.time_step(advance, state, iters)
             eps = bsz * (256 * 2 + 8 * 2) / (step_ms / 1e3)
             print(json.dumps({
-                "bsz": bsz, "chunks": chunks,
-                "step_ms": round(step_ms, 3),
-                "clock": "device_trace" if dev_ms else "host",
+                "bsz": bsz, "chunks": chunks, **info,
+                "step_ms": round(step_ms, 3), "clock": "device_trace",
+                "host_step_ms": round(host_ms, 3),
                 "edges_per_sec": round(eps, 1),
-                "mfu": round(flops / (step_ms / 1e3) / bench.PEAK_FLOPS, 4),
+                "mfu": round(flops / (step_ms / 1e3) / peak, 4),
             }), flush=True)
         except Exception as e:  # keep sweeping past OOM/compile failures
             print(json.dumps({"bsz": bsz, "chunks": chunks,

@@ -1,17 +1,17 @@
 """Full-psum vs owner-sharded halo exchange: measured crossover study.
 
-Round-1 VERDICT next-step #6. Runs both edge-partitioned DMP forward
+Runs both edge-partitioned DMP forward
 paths (parallel/edge_partition.py = replicated node state + one [V, H]
 psum per layer; parallel/halo.py = owned node slices + one boundary
 all_to_all per layer) on the 8-way virtual CPU mesh over synthetic
 graphs of varying locality, and reports per-device collective bytes per
 layer plus measured wall time.
 
-The CPU mesh measures algorithmic traffic, not ICI: collectives are
-memcpys, so wall-clock favors whichever path moves fewer bytes —
-exactly the quantity the crossover is about. On real multi-chip
-hardware the ratio psum_bytes/halo_bytes translates directly to ICI
-time at ~4.5e10 B/s/link (v5e).
+The CPU mesh measures algorithmic traffic, not interconnect time:
+collectives are memcpys, so wall-clock favors whichever path moves fewer
+bytes — exactly the quantity the crossover is about. On real cards the
+ratio psum_bytes/halo_bytes translates to collective time at the
+interconnect's rate (NVLink: 450 GB/s each way per H100).
 
 Usage:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \

@@ -1,16 +1,17 @@
-"""100M-edge north-star DATA-PATH smoke (host side, no TPU needed).
+"""100M-edge north-star DATA-PATH smoke (host side, no accelerator needed).
 
 Exercises the full large-graph input pipeline at the SURVEY's 100M-edge
 target: power-law generator -> WholeGraph CSR (both directions) ->
 random-walk subgraph sampling -> static padding -> owner-sharded halo
-partition with windowed-kernel pass plans.
+partition.
 
 Measured on this rig (4-core host, 125 GB RAM; 2026-08-18):
     generate 100M edges                         94 s
     WholeGraph CSR (200M directed edges)       127 s  (one-time)
     random-walk sample (10k-edge batch, d3w10)   9.8 s -> 0.92M V / 5.6M E
     pad_subgraph                                 0.3 s
-    halo partition (degree) + windowed plans     7.3 s
+    halo partition (degree) + pass plans         7.3 s
+(host times; the pass plans have since been removed)
 
 The per-batch work (sample + pad + partition) runs inside train_unc's
 sampler prefetch threads, so steady-state epoch time approaches
@@ -32,7 +33,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 
-if not os.environ.get("DMP_EXAMPLE_TPU"):
+if not os.environ.get("DMP_EXAMPLE_ACCEL"):
     jax.config.update("jax_platforms", "cpu")
 
 from dualmessagepassing_tpu.data.synthetic import generate_large_graph  # noqa: E402
@@ -83,9 +84,8 @@ def main():
 
     vp, epv, b = halo_envelope(v_max, e_max, 8)
     t0 = time.perf_counter()
-    dev, _meta = build_halo_sub(padded, 8, vp, epv, b, method="degree",
-                                scatter_plan=True)
-    print(f"halo partition (degree) + windowed plans: "
+    dev, _meta = build_halo_sub(padded, 8, vp, epv, b, method="degree")
+    print(f"halo partition (degree): "
           f"{time.perf_counter()-t0:.1f}s; boundary rows "
           f"{int(dev['send_mask'].sum())}", flush=True)
     print("north-star data path OK", flush=True)

@@ -31,8 +31,8 @@ NOT in the default test suite (a full run is ~10-30 min). Usage:
     python scripts/scm_convergence.py --check SCM_CONVERGENCE.json # gate
 The gate compares final dev MAE/MSE/MNED/MEED at generous tolerances
 (0.15 rel) — far above run-to-run jitter at fixed seeds, far below a
-real regression. DMP_EXAMPLE_TPU=1 runs on the chip (default); on a
-CPU-only rig pass --pairs 96 --max-epochs 8 for a smoke-scale version.
+real regression. It runs on the default JAX device (--cpu forces the
+CPU); on a CPU-only rig pass --pairs 96 --max-epochs 8 for a smoke-scale version.
 """
 
 from __future__ import annotations
@@ -224,7 +224,8 @@ def run(pairs: int, max_epochs: int, early_stop: int, bsz: int, lr: float,
 
     # TRUE pre-training eval (epoch -1): the matching_learned gate
     # anchors its improvement ratio here. Anchoring at the end of epoch
-    # 0 proved platform-fragile — on TPU the matching head converges
+    # 0 proved platform-fragile — on the accelerator the matching head
+    # converges
     # WITHIN the first epoch (dev MNED 53.7 after epoch 0 vs 91.7 on
     # CPU; same recipe/seed), so a ratio against epoch-0 reads ~1.0
     # even though the trained end state matches the CPU run exactly.
@@ -294,7 +295,7 @@ def run(pairs: int, max_epochs: int, early_stop: int, bsz: int, lr: float,
     # recipe the model does not memorize its train split (train-fit
     # MNED ~= the zero floor) even though counting generalizes, so a
     # train-fit-based gate measured regime, not machinery (measured on
-    # TPU and CPU alike, round 4).
+    # the accelerator and the CPU alike).
     probe_pairs = min(16, n_train)
     probe_ds = GraphAdjDataset(data[:probe_pairs])   # rev-aug'd in place
     probe_sampler = BucketSampler(probe_ds.sizes(), ["g_len", "p_len"],
@@ -315,7 +316,7 @@ def run(pairs: int, max_epochs: int, early_stop: int, bsz: int, lr: float,
             p_state, p_pat, p_graph, p_counts, p_nw, p_ew,
             jnp.float32(0.01), jnp.float32(1.0), jnp.float32(0.0),
             jnp.float32(0.0), jnp.float32(1.0), d_key)
-        if i % 8 == 7:   # bound the un-synced dispatch chain (§9)
+        if i % 8 == 7:   # bound the un-synced dispatch chain
             jax.block_until_ready(p_losses["total"])
     jax.block_until_ready(p_state.params)
     p_fit = evaluate_epoch(p_state.variables(), eval_step, probe_ds,
@@ -377,7 +378,7 @@ def matching_learned(trajectory, baselines=None, train_fit=None,
         head, losses, refine hooks, VJPs — demonstrably learns).
         Probe-based, because at the flagship data scale the full run's
         own train split does NOT memorize (train-fit MNED ~= the zero
-        floor on both CPU and TPU) — a train-fit gate measures the
+        floor on both CPU and accelerator) — a train-fit gate measures the
         training regime, not the machinery;
       * train/dev ratios vs their zero floors are RECORDED as regime
         evidence (dev crossing below 1.0 means real held-out matching

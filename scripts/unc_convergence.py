@@ -290,7 +290,7 @@ def _eval_embs_multi(embs: np.ndarray, mem: np.ndarray, lp_lines, tag,
 # largest value (run.sh) — the 0.5 default showed the same chance-level
 # result at 12 epochs.
 SCALES = {
-    # full artifact scale (TPU-first; a few hours CPU): same structural
+    # full artifact scale (accelerator; a few hours CPU): same structural
     # regime as ci (community size ~500, intra-degree ~20), more of it
     "full": dict(V=6000, E=72000, C=12, R=4, noise=0.15, h_dim=50,
                  n_layers=2, n_epochs=24, graph_batch_size=2048,
@@ -381,9 +381,8 @@ def run_train(scale: str, seed: int, lp_frac: float, supervised: bool,
     """Stage 1 — every device-touching step: train the three model
     variants, export their embeddings, savez to state_path, EXIT. The
     expensive sklearn protocols run in a separate CPU process
-    (run_eval) so no timeout/kill can ever land on a process holding a
-    live PJRT client mid-eval (ARCHITECTURE §9 failure mode 4), and a
-    dead eval can be retried without retraining."""
+    (run_eval), so the device is released before them and a dead eval
+    can be retried without retraining."""
     import jax
 
     from dualmessagepassing_tpu.unc.driver import (train_unc,
@@ -654,7 +653,8 @@ def main(argv=None):
                          "eval = CPU protocols over a saved state; all = "
                          "train in a SUBPROCESS, then eval here (the "
                          "device-holding process exits before the long "
-                         "host evals start — ARCHITECTURE §9)")
+                         "host evals start, so one process holds the "
+                         "device at a time)")
     ap.add_argument("--state", default=None,
                     help="state npz path (default derived from scale/seed)")
     args = ap.parse_args(argv)
@@ -662,7 +662,9 @@ def main(argv=None):
         import jax
 
         jax.config.update("jax_platforms", "cpu")
-    state_path = args.state or f"/tmp/unc_conv_state_{args.scale}_{args.seed}.npz"
+    state_path = args.state or os.path.join(
+        tempfile.gettempdir(),
+        f"unc_conv_state_{args.scale}_{args.seed}.npz")
     if args.stage == "train":
         run_train(args.scale, args.seed, 0.05, not args.no_supervised,
                   state_path)

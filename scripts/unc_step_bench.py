@@ -1,11 +1,16 @@
-"""Device-trace timing of the full UNC train step: sorted/unsorted/
-windowed scatter x f32/amp (bf16 backbone) variants.
+"""A/B of UNC train-step variants on the device-trace clock, in one process.
 
-Re-litigates the round-1 "sorted-scatter hint is ~100x slower in-step"
-claim (unc/model.py:450-459), which was measured with the untrustworthy
-relay host clock. Yelp-ish envelope: V=65536, E=524288, H=50, 2 layers.
+Builds bench.build_unc_step for each variant at the bench envelope
+(V=65536, E=524288, H=50, 2 layers, bf16 amp, sorted XLA scatter) and
+times them in alternating rounds (A B B A ...), so drift of the card's
+clock or neighbours falls on every variant alike. Prints one JSON line
+per round and a summary line with each variant's median step time.
 
-Usage: python scripts/unc_step_bench.py [--iters 5]
+Variants: `split` (the default), `fused` (one gather over both endpoint
+streams), `f32` (amp off).
+
+Usage: python scripts/unc_step_bench.py [--variants split,fused]
+       [--rounds 4] [--iters 5] [--v 65536] [--e 524288]
 """
 
 from __future__ import annotations
@@ -13,189 +18,52 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import sys
-import tempfile
-
-import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+VARIANTS = {
+    "split": {"amp": True, "endpoints": "split"},
+    "fused": {"amp": True, "endpoints": "fused"},
+    "f32": {"amp": False, "endpoints": "split"},
+}
 
-def main():
+
+def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--variants", default="split,fused")
+    ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--v", type=int, default=65536)
     ap.add_argument("--e", type=int, default=524288)
-    ap.add_argument("--h", type=int, default=50)
-    ap.add_argument("--layers", type=int, default=2)
-    ap.add_argument("--halo-only", action="store_true",
-                    help="skip the flat variants (implies --halo)")
-    ap.add_argument("--halo", action="store_true",
-                    help="ALSO time the owner-sharded halo step (windowed"
-                         "+amp and xla+amp) on a 1-device mesh — the halo"
-                         " machinery's single-chip overhead")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
-    import jax
-    import jax.numpy as jnp
-    import optax
+    import bench
+    from dualmessagepassing_tpu.utils.compile_cache import (
+        enable_compile_cache)
 
-    from bench import device_ms_per_step
-    from dualmessagepassing_tpu.unc.model import (UNCTrainModel,
-                                                  init_unc_variables)
-
-    V, E, H, R = args.v, args.e, args.h, 3
-    rng = np.random.default_rng(0)
-    senders = rng.integers(0, V, E).astype(np.int32)
-    receivers = rng.integers(0, V, E).astype(np.int32)
-    order = np.argsort(receivers, kind="stable")
-    sub_np = {
-        "nid": np.arange(V, dtype=np.int64),
-        "senders": senders[order],
-        "receivers": receivers[order],
-        "edge_type": rng.integers(0, 2 * R, E).astype(np.int32)[order],
-        "rev_flag": (rng.random(E) < 0.5)[order],
-        "edge_mask": np.ones(E, bool),
-        "node_mask": np.ones(V, bool),
-        "edge_norm": (1.0 / np.maximum(
-            np.bincount(receivers, minlength=V)[receivers], 1)
-        ).astype(np.float32)[order][:, None],
-        "samples": np.stack([
-            rng.integers(0, V, 60000), rng.integers(0, R, 60000),
-            rng.integers(0, V, 60000)], 1).astype(np.int64),
-        "labels": (rng.random(60000) < 0.2).astype(np.float32),
-        "sample_mask": np.ones(60000, bool),
-    }
-    sub = {k: jnp.asarray(v) for k, v in sub_np.items()}
-
-    from dualmessagepassing_tpu.ops.segment_kernel import attach_scatter_plan
-
-    sub_planned = {k: jnp.asarray(v)
-                   for k, v in attach_scatter_plan(sub_np).items()}
-
-    out = {}
-    # (name, sorted_edges, windowed, amp) — amp rows measure the bf16
-    # backbone (unc.model.apply_unc_forward) against the f32 rows
-    variants = [] if args.halo_only else [
-        ("unsorted", False, False, False),
-        ("sorted", True, False, False),
-        ("windowed", True, True, False),
-        ("sorted_amp", True, False, True),
-        ("windowed_amp", True, True, True),
-    ]
-    for variant, sorted_edges, windowed, amp in variants:
-        if windowed:
-            sub = sub_planned
-        model = UNCTrainModel(
-            num_nodes=V, num_rels=R, h_dim=H, nlabel=0,
-            num_hidden_layers=args.layers, dropout=0.2, reg_param=0.01,
-            backbone="DMPNN", sorted_edges=sorted_edges,
-            scatter_backend="windowed" if windowed else "xla")
-        variables = init_unc_variables(model, jax.random.PRNGKey(0), sub)
-        params = variables["params"]
-        stats = variables.get("batch_stats", {})
-        tx = optax.adam(1e-2)
-        opt = tx.init(params)
-
-        from dualmessagepassing_tpu.unc.model import apply_unc_forward
-
-        def step_fn(params, opt, stats, sub, rng_):
-            def loss_fn(p):
-                (o, _), new_stats = apply_unc_forward(
-                    model, p, stats, sub, rng_, amp=amp)
-                loss = model.apply(
-                    {"params": p}, o, sub["edge_type"], sub["edge_mask"],
-                    sub["samples"], sub["labels"], sub["sample_mask"],
-                    sub["node_mask"],
-                    method=UNCTrainModel.unsupervised_loss)
-                return loss, new_stats
-
-            (loss, new_stats), grads = jax.value_and_grad(
-                loss_fn, has_aux=True)(params)
-            updates, opt = tx.update(grads, opt, params)
-            params = optax.apply_updates(params, updates)
-            return params, opt, (new_stats if stats else stats), loss
-
-        compiled = jax.jit(step_fn, donate_argnums=(0, 1)).lower(
-            params, opt, stats, sub, jax.random.PRNGKey(1)).compile()
-        ca = compiled.cost_analysis() or {}
-        p, o, s = params, opt, stats
-        p, o, s, loss = compiled(p, o, s, sub, jax.random.PRNGKey(2))
-        jax.block_until_ready(loss)
-        logdir = tempfile.mkdtemp(prefix="uncstep_")
-        with jax.profiler.trace(logdir):
-            for k in range(args.iters):
-                p, o, s, loss = compiled(p, o, s, sub,
-                                         jax.random.PRNGKey(3 + k))
-            jax.block_until_ready(loss)
-        ms = device_ms_per_step(logdir, args.iters)
-        key = variant
-        out[key] = {"device_ms": None if ms is None else round(ms, 3),
-                    "flops": float(ca.get("flops", float("nan")))}
-        print(json.dumps({key: out[key]}), flush=True)
-    if args.halo or args.halo_only:
-        # Owner-sharded halo step on a 1-device mesh: the single-chip cost
-        # of the halo machinery itself (shard_map + degenerate all_to_all +
-        # loss all_gather) against the flat variants above. Multi-shard
-        # SEMANTICS are pinned on the 8-way virtual mesh
-        # (tests/test_halo_unc.py); this is the TIME point.
-        from jax.sharding import Mesh
-
-        from dualmessagepassing_tpu.parallel.halo_unc import (
-            build_halo_sub, halo_envelope, make_halo_train_step,
-            shard_halo_sub)
-
-        mesh = Mesh(np.asarray(jax.devices()[:1]), ("ep",))
-        vp, epv, b = halo_envelope(V, E, 1)
-        plain_vars = None
-        # halo_r5_kernels = the round-5 sharded composition (VERDICT r4
-        # item 2): pad_cols + sbt row-broadcast forward receiver gather
-        # + sk2 sendwin cotangent + sb aggregation-backward broadcast
-        for variant, windowed, amp, r5 in [
-                ("halo_windowed_amp", True, True, False),
-                ("halo_r5_kernels", True, True, True),
-                ("halo_xla_amp", False, True, False)]:
-            dev, _meta = build_halo_sub(sub_np, 1, vp, epv, b,
-                                        scatter_plan=windowed,
-                                        bcast_plan=r5, sender_plan=r5)
-            mkw = dict(num_nodes=V, num_rels=R, h_dim=H, nlabel=0,
-                       num_hidden_layers=args.layers, dropout=0.2,
-                       reg_param=0.01, backbone="DMPNN", sorted_edges=True,
-                       pad_cols=(r5 or os.environ.get(
-                           "HALO_PADCOLS", "0") == "1"),
-                       scatter_backend="windowed" if windowed else "xla")
-            halo_model = UNCTrainModel(ep_axis="ep", node_sharding="owner",
-                                       **mkw)
-            if plain_vars is None:
-                plain_vars = init_unc_variables(
-                    UNCTrainModel(**mkw), jax.random.PRNGKey(0), sub)
-            params = plain_vars["params"]
-            stats = plain_vars.get("batch_stats", {})
-            tx = optax.adam(1e-2)
-            opt = tx.init(params)
-            step = make_halo_train_step(halo_model, tx, mesh, amp=amp)
-            sharded = shard_halo_sub(mesh, dev)
-            compiled = step.lower(params, opt, stats, sharded,
-                                  jax.random.PRNGKey(1)).compile()
-            ca = compiled.cost_analysis() or {}
-            p, o, s = params, opt, stats
-            p, o, s, loss = compiled(p, o, s, sharded, jax.random.PRNGKey(2))
-            jax.block_until_ready(loss)
-            logdir = tempfile.mkdtemp(prefix="uncstep_halo_")
-            with jax.profiler.trace(logdir):
-                for k in range(args.iters):
-                    p, o, s, loss = compiled(p, o, s, sharded,
-                                             jax.random.PRNGKey(3 + k))
-                jax.block_until_ready(loss)
-            ms = device_ms_per_step(logdir, args.iters)
-            out[variant] = {"device_ms": None if ms is None else round(ms, 3),
-                            "flops": float(ca.get("flops", float("nan")))}
-            print(json.dumps({variant: out[variant]}), flush=True)
-
-    if out.get("sorted", {}).get("device_ms") and \
-       out.get("unsorted", {}).get("device_ms"):
-        r = out["unsorted"]["device_ms"] / out["sorted"]["device_ms"]
-        print(f"sorted is {r:.2f}x of unsorted (>1 = sorted faster)")
+    enable_compile_cache()
+    info = bench.device_info()
+    names = args.variants.split(",")
+    built = {n: bench.build_unc_step(args.v, args.e, flags=VARIANTS[n])
+             for n in names}
+    times = {n: [] for n in names}
+    for r in range(args.rounds):
+        order = names if r % 2 == 0 else names[::-1]
+        for n in order:
+            advance, state, _ = built[n]
+            dev_ms, host_ms = bench.time_step(advance, state, args.iters)
+            times[n].append(dev_ms)
+            print(json.dumps({"round": r, "variant": n,
+                              "device_step_ms": dev_ms,
+                              "host_step_ms": host_ms}), flush=True)
+    print(json.dumps({
+        "metric": "unc_step_ab", **info, "v": args.v, "e": args.e,
+        "iters": args.iters, "rounds": args.rounds,
+        "median_device_step_ms": {n: statistics.median(t)
+                                  for n, t in times.items()},
+        "flags": {n: VARIANTS[n] for n in names}}), flush=True)
 
 
 if __name__ == "__main__":

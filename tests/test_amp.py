@@ -1,7 +1,7 @@
 """bf16 mixed precision (utils/amp.py + make_train_step(amp=True)).
 
-The flagship TPU win is 1.76x (90.9 -> 51.7 ms/step at bsz 2048, device
-trace — ARCHITECTURE.md §11); these CPU tests pin the semantics:
+What amp is worth on the GPU is measured on the card (PERF.md); these
+CPU tests pin the semantics:
   * the default f32 path is bit-unchanged (compute_dtype defaults f32);
   * the amp forward is bf16 END TO END (no silent promotion back);
   * amp gradients align with f32 gradients (cosine);

@@ -1,9 +1,9 @@
 """Wiring tests for bench.py's inference (serving) workloads.
 
-The numbers only mean something on the TPU (device-trace clock); these
+The numbers only mean something on the GPU (device-trace clock); these
 CPU tests pin that the forward-only step builders construct, compile,
 and advance — so BENCH_WORKLOAD=scm_infer / unc_infer cannot silently
-rot between TPU runs. Reference latency surface being mirrored:
+rot between GPU runs. Reference latency surface being mirrored:
 SubgraphCountingMatching/train.py:939-940 (eval forward time/sample)
 and UnsupervisedNodeClassification .../main.py:184-209 (embedding
 export in eval mode).
@@ -32,10 +32,6 @@ def test_scm_infer_builds_and_advances(monkeypatch):
 
 def test_unc_infer_builds_and_advances(monkeypatch):
     monkeypatch.setenv("BENCH_AMP", "1")
-    # xla backend: the windowed Pallas kernel needs the TPU (or explicit
-    # interpreter mode) — the serving bench's default stays windowed on
-    # the chip
-    monkeypatch.setenv("BENCH_UNC_BACKEND", "xla")
     from bench import build_unc_infer
 
     v, e = 64, 512
@@ -48,7 +44,6 @@ def test_unc_infer_builds_and_advances(monkeypatch):
 def test_unc_infer_is_deterministic(monkeypatch):
     """Eval mode: no dropout, BN running stats — two advances agree."""
     monkeypatch.setenv("BENCH_AMP", "0")
-    monkeypatch.setenv("BENCH_UNC_BACKEND", "xla")
     from bench import build_unc_infer
 
     advance, state0, _ = build_unc_infer(64, 512)

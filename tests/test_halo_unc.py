@@ -261,102 +261,6 @@ def test_halo_envelope_overflow_raises(rng):
         build_halo_sub(sub, N_SHARDS, vp=6, ep=2, b=6)  # ep too small
 
 
-def test_halo_windowed_forward_matches_single_device(rng):
-    """build_halo_sub(scatter_plan=True) plans over each owner's LOCAL
-    receivers; the owner-sharded windowed forward matches the
-    single-device xla path (CPU fallback consumes the same plan arrays,
-    validating the per-owner plan construction and plumbing)."""
-    sub = make_padded_sub(rng)
-    v_max = len(sub["nid"])
-    e_max = len(sub["senders"])
-    vp, ep, b = halo_envelope(v_max, e_max, N_SHARDS)
-    dev, meta = build_halo_sub(sub, N_SHARDS, vp, ep, b, scatter_plan=True)
-    for key in ("sk_blk", "sk_win", "sk_first", "sk_recv"):
-        assert dev[key].shape[0] == N_SHARDS
-
-    sub_dev = {k: jnp.asarray(v) for k, v in sub.items()}
-    kw = dict(num_nodes=40, num_rels=3, h_dim=16, nlabel=0,
-              num_hidden_layers=2, dropout=0.0, reg_param=0.01,
-              backbone="DMPNN")
-    ref_model = UNCTrainModel(**kw)
-    variables = init_unc_variables(ref_model, jax.random.PRNGKey(0), sub_dev)
-    ref_out, _ = ref_model.apply(variables, sub_dev, train=False)
-
-    mesh = mesh8()
-    halo_model = UNCTrainModel(ep_axis="ep", node_sharding="owner",
-                               scatter_backend="windowed", sorted_edges=True,
-                               **kw)
-    with mesh:
-        halo_out, _ = make_halo_apply(halo_model, mesh)(
-            variables, shard_halo_sub(mesh, dev))
-    np.testing.assert_allclose(unshard_halo_nodes(meta, halo_out[0]),
-                               np.asarray(ref_out[0]), atol=1e-5, rtol=1e-5)
-    e_mask = np.asarray(sub["edge_mask"])
-    z = unshard_halo_edges(meta, halo_out[1], e_max)
-    np.testing.assert_allclose(z[e_mask], np.asarray(ref_out[1])[e_mask],
-                               atol=1e-5, rtol=1e-5)
-
-
-def test_halo_windowed_train_step_matches_single_device(rng):
-    """SGD through the windowed kernel's VJP under owner sharding tracks
-    the single-device trajectory (params exact over 2 steps)."""
-    from dualmessagepassing_tpu.unc.driver import make_unc_train_step
-
-    sub = make_padded_sub(rng)
-    v_max = len(sub["nid"])
-    e_max = len(sub["senders"])
-    vp, ep, b = halo_envelope(v_max, e_max, N_SHARDS)
-    dev, meta = build_halo_sub(sub, N_SHARDS, vp, ep, b, scatter_plan=True)
-    sub_dev = {k: jnp.asarray(v) for k, v in sub.items()}
-    kw = dict(num_nodes=40, num_rels=3, h_dim=16, nlabel=0,
-              num_hidden_layers=2, dropout=0.0, reg_param=0.01,
-              backbone="DMPNN")
-    ref_model = UNCTrainModel(**kw)
-    variables = init_unc_variables(ref_model, jax.random.PRNGKey(0), sub_dev)
-    halo_model = UNCTrainModel(ep_axis="ep", node_sharding="owner",
-                               scatter_backend="windowed", sorted_edges=True,
-                               **kw)
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
-    mesh = mesh8()
-    sharded = shard_halo_sub(mesh, dev)
-
-    tx = optax.sgd(1e-1)
-    opt = tx.init(params)
-    ref_step = make_unc_train_step(ref_model, tx)
-    halo_step = make_halo_train_step(halo_model, tx, mesh)
-    rp, ro, rs = params, opt, stats
-    hp, ho, hs = params, opt, stats
-    for k in range(2):
-        key = jax.random.PRNGKey(100 + k)
-        rp, ro, rs, rl = ref_step(rp, ro, rs, sub_dev, key)
-        with mesh:
-            hp, ho, hs, hl = halo_step(hp, ho, hs, sharded, key)
-        np.testing.assert_allclose(float(rl), float(hl), atol=1e-5)
-    for pa, pb in zip(jax.tree.leaves(rp), jax.tree.leaves(hp)):
-        np.testing.assert_allclose(np.asarray(pa), np.asarray(pb), atol=1e-5)
-
-
-def test_train_unc_halo_windowed_end_to_end(rng):
-    """Driver wiring: ep_mode='halo' + scatter_backend='windowed' builds
-    per-owner plans each batch and completes training."""
-    from dualmessagepassing_tpu.unc.driver import train_unc
-
-    src = rng.integers(0, 25, 120)
-    dst = (src + rng.integers(1, 25, 120)) % 25
-    rel = rng.integers(0, 2, 120)
-    t = np.stack([src, rel, dst], axis=1).astype(np.int64)
-    embs, coverage = train_unc(
-        t, 25, 2, h_dim=8, n_layers=1, lr=1e-2, reg_param=0.01,
-        negative_rate=2, graph_batch_size=40, graph_split_size=0.9,
-        sampler="randomwalk", sample_depth=2, sample_width=5,
-        n_epochs=2, v_max=25, e_max=125, seed=0, ep_devices=8,
-        ep_mode="halo", scatter_backend="windowed", log=lambda s: None)
-    assert embs.shape == (25, 8)
-    assert coverage > 0.9
-    assert np.isfinite(embs).all()
-
-
 def test_bfs_partitioner_correct_and_reduces_boundary(rng):
     """On a ring-of-cliques graph the BFS region-growing partitioner must
     (a) produce a correct owner-sharded forward (== single device) and
@@ -417,150 +321,3 @@ def test_bfs_partitioner_correct_and_reduces_boundary(rng):
     np.testing.assert_allclose(unshard_halo_nodes(meta_b, halo_out[0]),
                                np.asarray(ref_out[0]), atol=1e-5, rtol=1e-5)
 
-
-def test_halo_r4_kernel_plans_train_step_matches(rng):
-    """Round-5 (VERDICT r4 item 2): the round-4 kernel composition —
-    pad_cols + row-broadcast forward receiver gather (sbt_* plans at the
-    composite-table envelope) + senders-sorted windowed cotangent
-    (sk2_*) + aggregation-backward broadcast (sb_*) — rides the halo
-    path. Under amp, the planned halo step must track BOTH the plan-less
-    halo step and the single-device step (CPU fallbacks consume the same
-    plan arrays, pinning per-owner plan construction: own-envelope dump
-    windows, local sender sorts over the [owned; halo; dump] space)."""
-    from dualmessagepassing_tpu.unc.driver import make_unc_train_step
-
-    sub = make_padded_sub(rng)
-    v_max = len(sub["nid"])
-    e_max = len(sub["senders"])
-    vp, ep, b = halo_envelope(v_max, e_max, N_SHARDS)
-    dev_plain, _ = build_halo_sub(sub, N_SHARDS, vp, ep, b,
-                                  scatter_plan=True)
-    dev_r4, _ = build_halo_sub(sub, N_SHARDS, vp, ep, b,
-                               scatter_plan=True, bcast_plan=True,
-                               sender_plan=True)
-    for key in ("sb_blk", "sbt_blk", "sbt_recv", "sk2_blk", "send_order"):
-        assert key in dev_r4 and key not in dev_plain
-        assert dev_r4[key].shape[0] == N_SHARDS
-    # sbt dump window sits at the COMPOSITE-table envelope, not [Vp]
-    vt = vp + N_SHARDS * b + 1
-    v_pad_t = -(-vt // 128) * 128
-    assert dev_r4["sbt_recv"].max() == v_pad_t
-
-    sub_dev = {k: jnp.asarray(v) for k, v in sub.items()}
-    kw = dict(num_nodes=40, num_rels=3, h_dim=16, nlabel=0,
-              num_hidden_layers=2, dropout=0.0, reg_param=0.01,
-              backbone="DMPNN")
-    ref_model = UNCTrainModel(sorted_edges=True, **kw)
-    variables = init_unc_variables(ref_model, jax.random.PRNGKey(0), sub_dev)
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
-    hkw = dict(ep_axis="ep", node_sharding="owner",
-               scatter_backend="windowed", sorted_edges=True,
-               pad_cols=True, **kw)
-    halo_model = UNCTrainModel(**hkw)
-
-    mesh = mesh8()
-    tx = optax.sgd(1e-1)
-    ref_step = make_unc_train_step(ref_model, tx, amp=True)
-    halo_step = make_halo_train_step(halo_model, tx, mesh, amp=True)
-    sh_plain = shard_halo_sub(mesh, dev_plain)
-    sh_r4 = shard_halo_sub(mesh, dev_r4)
-    rp, ro = params, tx.init(params)
-    pp, po = params, tx.init(params)
-    qp, qo = params, tx.init(params)
-    rs = ps = qs = stats
-    for k in range(2):
-        key = jax.random.PRNGKey(100 + k)
-        rp, ro, rs, rl = ref_step(rp, ro, rs, sub_dev, key)
-        with mesh:
-            pp, po, ps, pl = halo_step(pp, po, ps, sh_plain, key)
-            qp, qo, qs, ql = halo_step(qp, qo, qs, sh_r4, key)
-        np.testing.assert_allclose(float(pl), float(ql), atol=1e-5)
-        # no cross-topology loss pin under amp: single-device vs sharded
-        # bf16 partial-sum ordering compounds over steps (the sharded ==
-        # single-device equivalence is pinned by the non-amp tests
-        # above); rl is evaluated to keep the ref path compiling
-        assert np.isfinite(float(rl))
-    for pa, pb in zip(jax.tree.leaves(pp), jax.tree.leaves(qp)):
-        np.testing.assert_allclose(np.asarray(pa), np.asarray(pb),
-                                   atol=1e-5)
-
-
-
-def test_halo_r4_kernels_interpreter(rng):
-    """The REAL Pallas kernels (via the interpreter) on the halo-shaped
-    plan variants: (a) _take_rows_bcast_sorted forward-broadcasts from a
-    COMPOSITE table whose row envelope exceeds the stream's max index
-    (the sbt plan: own receiver column, dump window at the table
-    envelope) with the sorted-scatter backward; (b) _take_rows_win_perm
-    on a sender plan whose pad rows carry the DUMP index (they sort to
-    the tail and scatter zeros into the last table row). Both must match
-    the plain gather / scatter semantics. Full-model interpreter runs
-    under an 8-shard shard_map are minutes-slow, so this pins the
-    kernel-level contract directly."""
-    import dualmessagepassing_tpu.ops.segment_kernel as sk
-    from dualmessagepassing_tpu.unc.model import (_take_rows_bcast_sorted,
-                                                  _take_rows_win_perm)
-
-    vp, b, n = 96, 32, 4
-    vt = vp + n * b + 1                  # [owned; halo; dump] rows
-    e_real, e_env = 300, 512
-    recv = np.sort(rng.integers(0, vp, e_real))
-    table = jnp.asarray(rng.normal(size=(vt, 128)), jnp.bfloat16)
-    idx = jnp.asarray(np.concatenate(
-        [recv, np.full(e_env - e_real, recv[-1])]))
-    cot = jnp.asarray(rng.normal(size=(e_env, 128)), jnp.bfloat16)
-    cot = cot * (jnp.arange(e_env) < e_real)[:, None].astype(cot.dtype)
-
-    sbt = sk.plan_bcast_arrays(recv, vt, e_env, prefix="sbt",
-                               with_recv=True)
-
-    def f_bcast(t):
-        out = _take_rows_bcast_sorted(
-            t, idx, jnp.asarray(sbt["sbt_recv"]),
-            jnp.asarray(sbt["sbt_blk"]), jnp.asarray(sbt["sbt_win"]),
-            jnp.asarray(sbt["sbt_first"]), sorted_idx=True)
-        return jnp.sum(out.astype(jnp.float32) * cot.astype(jnp.float32))
-
-    sk.INTERPRET = True
-    try:
-        val_k, grad_k = jax.value_and_grad(f_bcast)(table)
-    finally:
-        sk.INTERPRET = False
-    ref_rows = np.asarray(table, np.float32)[np.asarray(idx)]
-    ref_rows[e_real:] = 0.0              # bcast pads come back zero
-    ref_val = float((ref_rows * np.asarray(cot, np.float32)).sum())
-    np.testing.assert_allclose(float(val_k), ref_val, rtol=1e-5)
-    g_ref = np.zeros((vt, 128), np.float32)
-    np.add.at(g_ref, np.asarray(idx), np.asarray(cot, np.float32))
-    np.testing.assert_allclose(np.asarray(grad_k, np.float32),
-                               g_ref.astype(np.float32)
-                               .astype(jnp.bfloat16).astype(np.float32),
-                               atol=2e-2)
-
-    # (b) sender plan over the composite index space with dump-index pads
-    send = rng.integers(0, vt - 1, e_env)
-    send[e_real:] = vt - 1               # pads address the zero/dump row
-    order = np.argsort(send, kind="stable").astype(np.int64)
-    p2 = sk.build_pass_plan(send[order], vt, e_env=e_env, v_env=vt)
-
-    def f_send(t):
-        out = _take_rows_win_perm(
-            t, jnp.asarray(send), jnp.asarray(order),
-            jnp.asarray(p2["recv_col"]), jnp.asarray(p2["blk"]),
-            jnp.asarray(p2["win"]), jnp.asarray(p2["first"]))
-        return jnp.sum(out.astype(jnp.float32) * cot.astype(jnp.float32))
-
-    sk.INTERPRET = True
-    try:
-        val_s, grad_s = jax.value_and_grad(f_send)(table)
-    finally:
-        sk.INTERPRET = False
-    rows_s = np.asarray(table, np.float32)[send]
-    ref_val_s = float((rows_s * np.asarray(cot, np.float32)).sum())
-    np.testing.assert_allclose(float(val_s), ref_val_s, rtol=1e-5)
-    g_ref_s = np.zeros((vt, 128), np.float32)
-    np.add.at(g_ref_s, send, np.asarray(cot, np.float32))
-    got = np.asarray(grad_s, np.float32)
-    np.testing.assert_allclose(got[:-1], g_ref_s[:-1].astype(jnp.bfloat16
-                               ).astype(np.float32), atol=2e-2)

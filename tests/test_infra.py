@@ -198,7 +198,7 @@ def test_dense_parts_equals_concat(rng):
         [jnp.broadcast_to(p, (b, l, h)), g, g - p, g * p,
          jnp.broadcast_to(s, (b, l, 1))], axis=2)
     # Dense's `init` FIELD shadows Module.init — call it unbound
-    import flax.linen as nn
+    from dualmessagepassing_tpu import nn
     params = nn.Module.init(dense, jax.random.PRNGKey(0), full)
     y_cat = dense.apply(params, full)
     y_parts = dense.apply(params, parts=[p, g, g - p, g * p, s])

@@ -96,13 +96,19 @@ def test_native_speedup(rng):
 
     ps, pr, pel, pvl, gs, gr, gel, gvl = rand_case(
         rng, pv=4, pe=5, gv=24, ge=140, nl=1, el=1)
-    t0 = time.perf_counter()
-    want = enumerate_subisomorphisms(ps, pr, pvl, pel, gs, gr, gvl, gel,
-                                     use_native=False)
-    t_py = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    got = native.enumerate_subiso_native(ps, pr, pel, pvl, gs, gr, gel, gvl)
-    t_c = time.perf_counter() - t0
+    def best_of_3(fn):
+        # the fastest of three runs: parallel test workers share the cores
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append(time.perf_counter() - t0)
+        return out, min(times)
+
+    want, t_py = best_of_3(lambda: enumerate_subisomorphisms(
+        ps, pr, pvl, pel, gs, gr, gvl, gel, use_native=False))
+    got, t_c = best_of_3(lambda: native.enumerate_subiso_native(
+        ps, pr, pel, pvl, gs, gr, gel, gvl))
     assert got.shape == want.shape
     # informational; native should be at least ~5x faster on this size
     print(f"python {t_py*1e3:.1f}ms native {t_c*1e3:.1f}ms "

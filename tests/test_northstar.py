@@ -1,8 +1,8 @@
 """CI gate for the north-star composed pipeline (scripts/northstar_train.py).
 
 Runs the full end-to-end loop — synthetic power-law graph, threaded
-random-walk sampling + negative sampling, owner-sharded halo partition
-with windowed scatter plans, bf16-amp halo train steps on the 8-way
+random-walk sampling + negative sampling, owner-sharded halo partition,
+bf16-amp halo train steps on the 8-way
 virtual mesh, full-state checkpoint written AND restored mid-run — at a
 small envelope, and gates on the same acceptance criteria the full-size
 artifact (NORTHSTAR.json) is held to: monotone-ish decreasing loss over
@@ -32,5 +32,5 @@ def test_northstar_small_envelope():
     assert result["loss_last_half_mean"] < result["loss_first"]
     assert result["loss_decreased"]
     assert result["checkpoint_verified"]
-    assert result["backend"] == "windowed" and result["amp"]
+    assert result["amp"]
     assert 0.0 <= result["sample_overlap_fraction"] <= 1.0

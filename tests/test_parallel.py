@@ -238,7 +238,7 @@ def test_dp_composes_with_amp_and_chunks(rng):
 
 
 def test_dp_state_checkpoint_roundtrip(rng, tmp_path):
-    """orbax save/restore of a mesh-replicated TrainState: saving from a
+    """.npz save/restore of a mesh-replicated TrainState: saving from a
     DP run and resuming (replicated again) must preserve every leaf."""
     from dualmessagepassing_tpu import build_model
     from dualmessagepassing_tpu.train import (TrainState, dp_replicate_state,

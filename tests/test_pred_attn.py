@@ -125,7 +125,7 @@ def test_model_with_attn_pred_nets(rng, pred_net, extra):
 def test_lstm_mem_init(rng):
     """lstm mem_init: final LSTM hidden per window vs explicitly sliced
     windows through the same cell params."""
-    import flax.linen as fnn
+    from dualmessagepassing_tpu import nn as fnn
     from dualmessagepassing_tpu.models.pred_attn import WindowLSTMMem
 
     B, L, D, M, F = 2, 10, 4, 3, 6

@@ -86,38 +86,3 @@ def test_scatter_sum_flat_sorted_flag(rng):
     np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                rtol=1e-6, atol=1e-6)
 
-
-def test_csr_sort_host():
-    """CSR prep: order is a stable receiver sort, row_ptr bounds each row."""
-    from dualmessagepassing_tpu.ops.pallas_scatter import csr_sort_host
-
-    recv = np.array([3, 0, 2, 0, 3, 1, 1, 0], np.int32)
-    order, row_ptr = csr_sort_host(recv, 5)
-    srt = recv[order]
-    assert (np.diff(srt) >= 0).all()
-    assert row_ptr.tolist() == [0, 3, 5, 6, 8, 8]
-    for v in range(5):
-        seg = srt[row_ptr[v]:row_ptr[v + 1]]
-        assert (seg == v).all()
-
-
-def test_pallas_csr_segment_sum_tpu(rng):
-    """Kernel vs XLA scatter oracle — only runs on real TPU hardware."""
-    import pytest
-
-    if jax.default_backend() != "tpu":
-        pytest.skip("pallas TPU kernel requires TPU backend")
-    from dualmessagepassing_tpu.ops.pallas_scatter import (
-        csr_sort_host, pallas_csr_segment_sum)
-
-    V, E, H, tile_v, tile_e = 512, 4096, 64, 256, 512
-    recv = rng.integers(0, V, E).astype(np.int32)
-    msg = rng.normal(size=(E, H)).astype(np.float32)
-    order, row_ptr = csr_sort_host(recv, V, tile_e)
-    msg_s = np.concatenate([msg[order], np.zeros((tile_e, H), np.float32)])
-    recv_s = np.concatenate([recv[order], np.zeros(tile_e, np.int32)])
-    out = pallas_csr_segment_sum(jnp.asarray(msg_s), jnp.asarray(recv_s),
-                                 jnp.asarray(row_ptr), V, tile_v, tile_e)
-    want = jnp.zeros((V, H)).at[jnp.asarray(recv)].add(jnp.asarray(msg))
-    np.testing.assert_allclose(np.asarray(out), np.asarray(want),
-                               rtol=1e-4, atol=1e-4)

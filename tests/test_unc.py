@@ -81,6 +81,25 @@ def test_edge_dropout_and_norm(rng):
     assert np.isfinite(norm).all()
 
 
+def make_tiny_padded(rng):
+    """A padded random-walk subgraph of a 20-node, 3-relation graph with
+    16 positive and 32 negative samples."""
+    t = make_triplets(rng, n=20, e=60, r=3)
+    g = WholeGraph(20, 3, t)
+    edges = t[:16]
+    neg = negative_sampling(edges, 20, 2, rng)
+    seeds = np.unique(np.concatenate(
+        [edges[:, 0], edges[:, 2], neg[:, 0], neg[:, 2]]))
+    sub = sample_subgraph_by_randomwalks(g, seeds, 2, 5, rng)
+    samples = np.concatenate([edges, neg]).copy()
+    samples[:, 0] = convert_subgraph_nids(samples[:, 0], sub["nid"])
+    samples[:, 2] = convert_subgraph_nids(samples[:, 2], sub["nid"])
+    labels = np.zeros(len(samples), np.float32)
+    labels[:16] = 1.0
+    return pad_subgraph(sub, samples, labels, v_max=24, e_max=24 * 5,
+                        s_max=64, edge_norm=compute_edgenorm(sub))
+
+
 def test_unc_model_and_loss(rng):
     t = make_triplets(rng, n=20, e=60, r=3)
     g = WholeGraph(20, 3, t)
@@ -455,7 +474,7 @@ def test_train_unc_checkpoint_resume(rng, tmp_path):
               checkpoint_dir=str(tmp_path / "ckpt"))
     logs = []
     embs, cov = train_unc(t, 20, 2, n_epochs=2, log=logs.append, **kw)
-    assert (tmp_path / "ckpt" / "latest").exists()
+    assert (tmp_path / "ckpt" / "latest.npz").exists()
     logs2 = []
     embs2, cov2 = train_unc(t, 20, 2, n_epochs=4, log=logs2.append, **kw)
     assert any("resumed from" in l for l in logs2), logs2[:4]
@@ -524,61 +543,10 @@ def test_fused_endpoint_gather_matches_split(rng):
                                    rtol=1e-5, atol=1e-6)
 
 
-def test_pad_cols_matches_unpadded(rng):
-    """pad_cols=True (128-lane endpoint column table) is a pure layout
-    change: forward and grads must match the unpadded model exactly."""
-    from dualmessagepassing_tpu.unc.data import compute_edgenorm
-
-    t = make_triplets(rng, n=20, e=60, r=3)
-    g = WholeGraph(20, 3, t)
-    edges = t[:16]
-    neg = negative_sampling(edges, 20, 2, rng)
-    seeds = np.unique(np.concatenate(
-        [edges[:, 0], edges[:, 2], neg[:, 0], neg[:, 2]]))
-    sub = sample_subgraph_by_randomwalks(g, seeds, 2, 5, rng)
-    samples = np.concatenate([edges, neg]).copy()
-    samples[:, 0] = convert_subgraph_nids(samples[:, 0], sub["nid"])
-    samples[:, 2] = convert_subgraph_nids(samples[:, 2], sub["nid"])
-    labels = np.zeros(len(samples), np.float32)
-    labels[:16] = 1.0
-    padded = pad_subgraph(sub, samples, labels, 24, 24 * 5, 64,
-                          edge_norm=compute_edgenorm(sub))
-    sub_dev = {k: jnp.asarray(v) for k, v in padded.items()}
-
-    def loss_and_grads(pad_cols):
-        model = UNCTrainModel(num_nodes=20, num_rels=3, h_dim=8, nlabel=0,
-                              num_hidden_layers=2, reg_param=0.01,
-                              backbone="DMPNN", sorted_edges=True,
-                              pad_cols=pad_cols)
-        variables = init_unc_variables(model, jax.random.PRNGKey(0),
-                                       sub_dev)
-
-        def loss_fn(p):
-            vs = {"params": p, **{k: v for k, v in variables.items()
-                                  if k != "params"}}
-            (out, _), _ = model.apply(vs, sub_dev, train=False,
-                                      mutable=["batch_stats"])
-            return model.apply(vs, out, sub_dev["edge_type"],
-                               sub_dev["edge_mask"], sub_dev["samples"],
-                               sub_dev["labels"], sub_dev["sample_mask"],
-                               sub_dev["node_mask"],
-                               method=UNCTrainModel.unsupervised_loss)
-
-        loss, grads = jax.value_and_grad(loss_fn)(variables["params"])
-        return float(loss), grads
-
-    l0, g0 = loss_and_grads(False)
-    l1, g1 = loss_and_grads(True)
-    np.testing.assert_allclose(l1, l0, rtol=1e-6)
-    for a, b in zip(jax.tree.leaves(g0), jax.tree.leaves(g1)):
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                   rtol=1e-5, atol=1e-6)
-
-
 def test_train_unc_fused_and_padcols_end_to_end(rng):
-    """train_unc(endpoint_gather='fused', pad_cols=True) runs end to end
-    and exports finite embeddings (the product-surface wiring of the
-    round-4 cotangent levers)."""
+    """train_unc(endpoint_gather='fused') runs end to end and exports
+    finite embeddings (the 128-column `pad_cols` tables it was paired with
+    are gone: slower than unpadded ones on the GPU)."""
     from dualmessagepassing_tpu.unc.driver import train_unc
 
     t = make_triplets(rng, n=20, e=80, r=2)
@@ -587,7 +555,7 @@ def test_train_unc_fused_and_padcols_end_to_end(rng):
         negative_rate=2, graph_batch_size=40, graph_split_size=0.9,
         sampler="randomwalk", sample_depth=2, sample_width=5,
         n_epochs=2, v_max=20, e_max=100, seed=0,
-        endpoint_gather="fused", pad_cols=True, log=lambda s: None)
+        endpoint_gather="fused", log=lambda s: None)
     assert embs.shape == (20, 8)
     assert np.isfinite(embs).all()
     assert coverage > 0.5
@@ -595,18 +563,12 @@ def test_train_unc_fused_and_padcols_end_to_end(rng):
 
 def test_train_unc_lever_guards(rng):
     """Invalid lever combinations fail loudly instead of silently
-    no-opping (sender_windowed needs amp+windowed; fused excludes
-    sharding and sender_windowed)."""
+    no-opping (the fused endpoint gather is single-device only)."""
     import pytest
     from dualmessagepassing_tpu.unc.driver import train_unc
 
     t = make_triplets(rng, n=20, e=80, r=2)
     kw = dict(h_dim=8, n_layers=1, graph_batch_size=40, n_epochs=1,
               v_max=20, e_max=100, log=lambda s: None)
-    with pytest.raises(ValueError, match="sender_windowed requires"):
-        train_unc(t, 20, 2, sender_windowed=True, **kw)
     with pytest.raises(ValueError, match="single-device"):
         train_unc(t, 20, 2, endpoint_gather="fused", ep_devices=2, **kw)
-    with pytest.raises(ValueError, match="pick one"):
-        train_unc(t, 20, 2, endpoint_gather="fused", sender_windowed=True,
-                  amp=True, scatter_backend="windowed", **kw)

@@ -142,9 +142,9 @@ def test_train_unc_amp_halo_end_to_end(rng):
     assert np.isfinite(embs).all()
 
 
-def test_train_unc_amp_windowed_ep_end_to_end(rng):
-    """All three round-2 levers compose: bf16 compute + windowed scatter
-    plans + edge-partitioned shard_map in one driver run."""
+def test_train_unc_amp_ep_end_to_end(rng):
+    """bf16 compute composes with the edge-partitioned shard_map in one
+    driver run."""
     from dualmessagepassing_tpu.unc.driver import train_unc
 
     src = rng.integers(0, 25, 120)
@@ -156,98 +156,15 @@ def test_train_unc_amp_windowed_ep_end_to_end(rng):
         negative_rate=2, graph_batch_size=40, graph_split_size=0.9,
         sampler="randomwalk", sample_depth=2, sample_width=5,
         n_epochs=2, v_max=25, e_max=125, seed=0, ep_devices=8,
-        scatter_backend="windowed", amp=True, log=lambda s: None)
+        amp=True, log=lambda s: None)
     assert embs.shape == (25, 8)
     assert coverage > 0.9
     assert np.isfinite(embs).all()
 
 
-def test_unc_amp_sender_windowed_matches_plain(rng):
-    """amp + windowed with the senders-sorted twin plan (sk2_*,
-    attach_scatter_plan(sender_plan=True) -> _take_rows_win_perm) produces
-    grads aligned with the plain windowed+amp path (kernel interpreted)."""
-    import dualmessagepassing_tpu.ops.segment_kernel as sk
-    from test_ep_unc import make_padded_sub
-
-    sub = make_padded_sub(rng)
-    base = sk.attach_scatter_plan(sub)
-    twin = sk.attach_scatter_plan(sub, sender_plan=True)
-    assert "sk2_blk" in twin and "sk2_blk" not in base
-
-    model = UNCTrainModel(num_nodes=40, num_rels=3, h_dim=16, nlabel=0,
-                          num_hidden_layers=2, dropout=0.0, reg_param=0.01,
-                          backbone="DMPNN", sorted_edges=True,
-                          scatter_backend="windowed")
-
-    def grads(layout, variables=[None]):
-        sub_dev = {k: jnp.asarray(v) for k, v in layout.items()}
-        if variables[0] is None:
-            variables[0] = init_unc_variables(model, jax.random.PRNGKey(0),
-                                              sub_dev)
-        vs = variables[0]
-        stats = vs.get("batch_stats", {})
-
-        def loss(p):
-            (out, _), _ = apply_unc_forward(model, p, stats, sub_dev,
-                                            jax.random.PRNGKey(1), amp=True)
-            return model.apply(
-                {"params": p}, out, sub_dev["edge_type"],
-                sub_dev["edge_mask"], sub_dev["samples"],
-                sub_dev["labels"], sub_dev["sample_mask"],
-                sub_dev["node_mask"],
-                method=UNCTrainModel.unsupervised_loss)
-
-        return jax.grad(loss)(vs["params"])
-
-    sk.INTERPRET = True
-    try:
-        g_base = grads(base)
-        g_twin = grads(twin)
-    finally:
-        sk.INTERPRET = False
-    for a, b in zip(jax.tree.leaves(g_base), jax.tree.leaves(g_twin)):
-        a = np.asarray(a, np.float64).ravel()
-        b = np.asarray(b, np.float64).ravel()
-        na, nb = np.linalg.norm(a), np.linalg.norm(b)
-        if na > 1e-6 and nb > 1e-6:
-            assert a @ b / (na * nb) > 0.999
-
-
-def test_train_unc_recv_bcast_default_end_to_end(rng):
-    """The round-4 single-device default composition — amp + windowed +
-    pad_cols + recv_bcast(auto) — runs the full driver pipeline (the
-    CPU fallback of the row-broadcast kernel exercises the same sb_*
-    plan plumbing the TPU kernel consumes), and an explicit
-    recv_bcast=True on an ineligible config raises instead of silently
-    no-oping."""
-    import pytest as _pytest
-
-    from dualmessagepassing_tpu.unc.driver import train_unc
-
-    src = rng.integers(0, 25, 120)
-    dst = (src + rng.integers(1, 25, 120)) % 25
-    rel = rng.integers(0, 2, 120)
-    t = np.stack([src, rel, dst], axis=1).astype(np.int64)
-    kw = dict(h_dim=8, n_layers=1, lr=1e-2, reg_param=0.01,
-              negative_rate=2, graph_batch_size=40, graph_split_size=0.9,
-              sampler="randomwalk", sample_depth=2, sample_width=5,
-              n_epochs=2, v_max=25, e_max=125, seed=0,
-              log=lambda s: None)
-    embs, coverage = train_unc(t, 25, 2, amp=True,
-                               scatter_backend="windowed", **kw)
-    assert embs.shape == (25, 8)
-    assert coverage > 0.9
-    assert np.isfinite(embs).all()
-    with _pytest.raises(ValueError, match="recv_bcast"):
-        train_unc(t, 25, 2, amp=False, recv_bcast=True, **kw)
-
-
-def test_train_unc_h64_windowed_amp_falls_back(rng):
-    """h_dim >= 64 makes the [V, 2H+1] endpoint table exceed one
-    128-lane tile: the cotangent/broadcast kernel gates must fall back
-    to the sorted XLA paths instead of tracing the kernel with an
-    oversized stream (pre-fix this crashed with a broadcast shape error
-    at trace time under amp + windowed + pad_cols)."""
+def test_train_unc_h64_amp_end_to_end(rng):
+    """h_dim >= 64 makes the [V, 2H+1] endpoint table wider than 128
+    columns; the amp pipeline runs end to end at that width."""
     from dualmessagepassing_tpu.unc.driver import train_unc
 
     src = rng.integers(0, 30, 150)
@@ -259,6 +176,6 @@ def test_train_unc_h64_windowed_amp_falls_back(rng):
         negative_rate=2, graph_batch_size=50, graph_split_size=0.9,
         sampler="randomwalk", sample_depth=2, sample_width=5,
         n_epochs=1, v_max=30, e_max=150, seed=0, amp=True,
-        scatter_backend="windowed", log=lambda s: None)
+        log=lambda s: None)
     assert embs.shape == (30, 64)
     assert np.isfinite(embs).all()
